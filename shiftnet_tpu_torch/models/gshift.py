@@ -1,0 +1,194 @@
+"""GShiftNet, the grouped spatial-temporal shift video restoration network.
+
+Counterpart of ``shiftnet_tpu/models/gshift.py`` (``Encoder2`` big-variant
+branch, ``GShiftNet``, ``build_model``).  Input is one clip ``(T, C_in, H,
+W)``; the forward predicts the ``T - past - future`` center frames with a
+global residual to the input (reference ``gshift_deblur1.py:783-791``).
+
+Not ported yet: the small variants' shift-block encoder
+(``encoder2_shift_encoder``) and add-fuse (``final_fuse_concat=False``), and
+the denoise variants' noise map and Shift_CABs; building those raises.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+from torch import nn
+
+from shiftnet_tpu_torch.models.config import CONFIGS, GShiftNetConfig
+from shiftnet_tpu_torch.models.layers import (CAB, Conv2d, DownSample,
+                                              EncoderShiftBlock, PReLU,
+                                              PixelShufflePack, SkipUpSample,
+                                              TFRUNet)
+
+
+def _check_ported(cfg: GShiftNetConfig) -> None:
+    unported = [f for f in ('encoder2_shift_encoder',
+                            'encoder2_level0_shift_cabs',
+                            'encoder2_level1_shift_cabs', 'noise_map')
+                if getattr(cfg, f)]
+    if not cfg.final_fuse_concat:
+        unported.append('final_fuse_concat=False')
+    if unported:
+        raise NotImplementedError(
+            f'{cfg.name}: not ported yet: {", ".join(unported)}')
+
+
+class Encoder2(nn.Module):
+    """Temporal-fusion U-Net (``gshift_deblur1.py:548-642``), big variant:
+    plain-CAB encoder over 3 levels, shift blocks in the decoder."""
+
+    def __init__(self, cfg: GShiftNetConfig):
+        super().__init__()
+        nf, nf0, red = cfg.n_feats2, cfg.n_feats0, cfg.ca_reduction
+        shift_kw = dict(rounds=cfg.shift_rounds, reduction=red,
+                        boundary_patch=cfg.boundary_patch,
+                        mid_ca=cfg.cab_mid_ca, last_bias=cfg.cab_last_bias,
+                        repconv_depthwise=cfg.repconv_depthwise)
+        dp = cfg.downsample_prelu
+        self.concat = CAB(nf0, 3, red)
+        self.down01 = nn.Sequential(
+            Conv2d(nf0, nf, 2, stride=2, padding=0), PReLU())
+        self.encoder_level1 = CAB(nf, 3, red)
+        self.encoder_level1_1 = CAB(nf, 3, red)
+        self.down12 = DownSample(nf, nf, dp)
+        self.encoder_level2 = CAB(nf, 3, red)
+        self.encoder_level2_1 = CAB(nf, 3, red)
+        self.down23 = DownSample(nf, nf, dp)
+        self.encoder_level3 = CAB(nf, 3, red)
+        self.encoder_level3_1 = CAB(nf, 3, red)
+        self.decoder_level3 = EncoderShiftBlock(nf, **shift_kw)
+        self.decoder_level3_1 = EncoderShiftBlock(nf, **shift_kw)
+        self.skip_attn2 = CAB(nf, 3, red)
+        self.up32 = SkipUpSample(nf, nf)
+        self.decoder_level2 = EncoderShiftBlock(nf, **shift_kw)
+        self.decoder_level2_1 = EncoderShiftBlock(nf, **shift_kw)
+        self.skip_attn1 = CAB(nf, 3, red)
+        self.up21 = SkipUpSample(nf, nf)
+        self.decoder_level1 = EncoderShiftBlock(nf, **shift_kw)
+        self.decoder_level1_1 = EncoderShiftBlock(nf, **shift_kw)
+        self.decoder_level1_2 = EncoderShiftBlock(nf, **shift_kw)
+        self.upsample0 = PixelShufflePack(nf, nf0, scale=2, upsample_kernel=3)
+        self.skip_conv = CAB(nf0, 3, red)
+        self.conv_hr0 = Conv2d(2 * nf0, nf0, 3, bias=True)
+        self.out_conv = CAB(nf0, 3, red)
+
+    def forward(self, x):
+        x = self.concat(x)
+        skip = self.skip_conv(x)  # the full-res shortcut is only read here
+        x = self.down01(x)
+        enc11 = self.encoder_level1_1(self.encoder_level1(x))
+        enc22 = self.encoder_level2_1(self.encoder_level2(self.down12(enc11)))
+        y = self.encoder_level3_1(self.encoder_level3(self.down23(enc22)))
+        y = self.decoder_level3_1(self.decoder_level3(y))
+        y = self.up32(y, self.skip_attn2(enc22))
+        del enc22
+        y = self.decoder_level2_1(self.decoder_level2(y))
+        y = self.up21(y, self.skip_attn1(enc11))
+        del enc11
+        y = self.decoder_level1_2(self.decoder_level1_1(
+            self.decoder_level1(y)))
+        up = self.upsample0(y)
+        del y
+        out = self.conv_hr0(torch.cat([up, skip], dim=1))
+        del up, skip
+        return self.out_conv(out)
+
+
+class GShiftNet(nn.Module):
+    """Three-stage network (``gshift_deblur1.py:726-791``): TFR U-Nets per
+    frame (stage 0), the temporal-fusion Encoder2 (stage 1), TFR U-Nets on
+    the center frames (stage 2)."""
+
+    def __init__(self, cfg: GShiftNetConfig):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        nf0 = cfg.n_feats0
+        tfr_kw = dict(kernel_size=3, reduction=cfg.ca_reduction,
+                      scale_unetfeats=cfg.tfr_scale,
+                      downsample_prelu=cfg.downsample_prelu,
+                      fused=cfg.fused_tfr)
+        self.feat_extract = nn.Sequential(
+            Conv2d(cfg.in_channels, nf0, 3, bias=True),
+            CAB(nf0, 3, cfg.ca_reduction))
+        for i in range(cfg.num_orbs):
+            self.add_module(f'orb{i + 1}', TFRUNet(nf0, **tfr_kw))
+        self.conv_trans = Conv2d(nf0, nf0, 3, bias=True)
+        self.stage1 = Encoder2(cfg)
+        self.rconcat = Conv2d(3 * nf0, nf0, 3, bias=cfg.rconcat_bias)
+        if cfg.rconcat_act:
+            self.lrelu = PReLU()
+        for i in range(cfg.num_orbs):
+            self.add_module(f'rorb{i + 1}', TFRUNet(nf0, **tfr_kw))
+        self.conv_last = Conv2d(nf0, 3, cfg.conv_last_ks)
+
+    def _orbs(self, prefix: str, y):
+        for i in range(self.cfg.num_orbs):
+            y = self.get_submodule(f'{prefix}{i + 1}')(y)
+        return y
+
+    def forward(self, x):
+        """x: (T, C_in, H, W) in the compute type -> (T - past - future, 3,
+        H, W)."""
+        cfg = self.cfg
+        t = x.shape[0]
+        center = slice(cfg.past_frames, t - cfg.future_frames)
+        x0 = self.feat_extract(x)
+        y = self._orbs('orb', x0)
+        sam0 = y + x0 if cfg.stage_residual else y
+        del y
+        if cfg.stage2_uses_conv_trans:
+            feats = self.conv_trans(sam0)
+            dec = self.stage1(feats)
+        else:  # conv_trans's output dies inside stage1
+            feats = sam0
+            dec = self.stage1(self.conv_trans(sam0))
+        z = torch.cat([x0[center], feats[center], dec[center]], dim=1)
+        del x0, sam0, dec, feats
+        z = self.rconcat(z)
+        if cfg.rconcat_act:
+            z = self.lrelu(z)
+        y = self._orbs('rorb', z)
+        if cfg.stage_residual:
+            y = y + z
+        del z
+        return self.conv_last(y) + x[center]
+
+
+def build_model(name: str, **overrides) -> GShiftNet:
+    cfg = CONFIGS[name].replace(**overrides) if overrides else CONFIGS[name]
+    return GShiftNet(cfg)
+
+
+def init_state(model: nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Seeded random weights for a model with no checkpoint, keyed like its
+    ``state_dict``: conv weights U(+-1/sqrt(fan_in)), biases 0.01 N(0, 1),
+    PReLU slopes 0.25, LayerNorm 1 / 0, CAB1/CAB2 beta 0.1 N(0, 1) (a zero
+    beta would make every shift block an identity).  Each tensor draws from
+    its own numpy generator seeded by (seed, key), so the values do not
+    depend on the order of the keys."""
+    state = {}
+    for key, p in model.state_dict().items():
+        digest = hashlib.sha256(f'{seed}:{key}'.encode()).digest()
+        rng = np.random.default_rng(int.from_bytes(digest[:8], 'little'))
+        shape = tuple(p.shape)
+        if key.endswith('.beta'):
+            v = 0.1 * rng.standard_normal(shape)
+        elif len(shape) == 4:
+            bound = 1.0 / np.sqrt(np.prod(shape[1:]))
+            v = rng.uniform(-bound, bound, shape)
+        elif shape == (1,):
+            v = np.full(shape, 0.25)
+        elif key.endswith('.bias') and '.norm.' in key:
+            v = np.zeros(shape)
+        elif key.endswith('.bias'):
+            v = 0.01 * rng.standard_normal(shape)
+        elif key.endswith('.weight'):  # LayerNorm2d scale
+            v = np.ones(shape)
+        else:
+            raise ValueError(f'init_state: unhandled parameter {key} {shape}')
+        state[key] = torch.from_numpy(v.astype(np.float32))
+    return state

@@ -1,0 +1,312 @@
+"""The TFR U-Net's four CUDA kernels, their plain versions, and the U-Net
+composed from them.
+
+Counterpart of ``shiftnet_tpu/ops/chw.py``.  The JAX module runs these ops
+on a packed ``ChwTensor`` layout that exists for the TPU's tiling rules; here
+every op takes logical ``(T, C, H, W)`` tensors, contiguous.
+
+Dispatch, the same for every public op:
+
+- a CUDA tensor launches the kernel (``csrc/*.cu``, built by ``_build``),
+  or raises;
+- a CPU tensor runs the op's plain PyTorch version (``*_plain``);
+- any other device raises.
+
+``LAUNCHES`` counts kernel launches per op, so a run can show that it went
+through the kernels.  Conv weights come in the activation type (the caller
+casts the float32 parameters, as flax's ``dtype=`` does); PReLU slopes and
+biases stay float32, and the kernels apply them in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from shiftnet_tpu_torch.ops import _build
+from shiftnet_tpu_torch.ops.resize import bilinear_up2x
+
+LAUNCHES = {'cab_front': 0, 'cab_back': 0, 'conv': 0, 'up_skip': 0}
+
+# Shared memory a block may use on Hopper (227 KB).
+SMEM_BYTES = 232448
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == 'cuda':
+        return True
+    if x.device.type == 'cpu':
+        return False
+    raise ValueError(f'no kernel or plain version for device {x.device}')
+
+
+def _check(name: str, x: torch.Tensor, *same_type: torch.Tensor | None,
+           f32: tuple[torch.Tensor | None, ...] = ()) -> int:
+    """Validate what a kernel takes; returns its dtype code."""
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f'{name}: dtype {x.dtype} not supported')
+    for t in (x, *same_type, *f32):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f'{name}: tensors on {t.device} and {x.device}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: tensors must be contiguous')
+    for t in same_type:
+        if t is not None and t.dtype != x.dtype:
+            raise TypeError(f'{name}: {t.dtype} operand with {x.dtype} input')
+    for t in f32:
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f'{name}: bias and PReLU slope must be float32')
+    return _DTYPE_CODE[x.dtype]
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    return F.prelu(x, alpha.to(x.dtype))
+
+
+# -- A: cab_front ------------------------------------------------------------
+
+def cab_front_smem(c: int, itemsize: int, th: int, tw: int) -> int:
+    """Shared memory of one ``cab_front`` block (csrc/cab_front.cu): the
+    input tile with a 2-pixel halo, the intermediate with a 1-pixel halo,
+    and 16 elements of slack."""
+    return (c * ((th + 4) * (tw + 4) + (th + 2) * (tw + 2)) + 16) * itemsize
+
+
+def cab_front_tile(c: int, itemsize: int) -> tuple[int, int]:
+    """Output tile (TH, TW) of ``cab_front``: the largest that fits in
+    shared memory."""
+    for th, tw in ((16, 16), (8, 16), (8, 8)):
+        if cab_front_smem(c, itemsize, th, tw) <= SMEM_BYTES:
+            return th, tw
+    raise ValueError(f'cab_front: C={c} does not fit in shared memory')
+
+
+def _taps_major(w: torch.Tensor, cp: int) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> float32 (Cin, 9, cp), output channels last and
+    zero-padded to cp: the layout ``cab_front`` loads 8 channels at a time
+    from."""
+    c_out, c_in = w.shape[:2]
+    wt = w.float().permute(1, 2, 3, 0).reshape(c_in, 9, c_out)
+    return F.pad(wt, (0, cp - c_out)).contiguous()
+
+
+def cab_front_plain(x, w1, alpha, w2):
+    s = F.conv2d(prelu(F.conv2d(x, w1, padding=1), alpha), w2, padding=1)
+    return s, s.float().sum(dim=(2, 3))
+
+
+def cab_front(x: torch.Tensor, w1: torch.Tensor, alpha: torch.Tensor,
+              w2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """CAB body conv3x3 -> PReLU -> conv3x3 (bias-free).
+
+    x: (T, C, H, W); w1, w2: (C, C, 3, 3) in x's type; alpha: (1,) float32.
+    Returns s (T, C, H, W) and its float32 channel sums (T, C).
+    """
+    if not _on_cuda(x):
+        return cab_front_plain(x, w1, alpha, w2)
+    code = _check('cab_front', x, w1, w2, f32=(alpha,))
+    t, c, h, w = x.shape
+    if w1.shape != (c, c, 3, 3) or w2.shape != (c, c, 3, 3):
+        raise ValueError(f'cab_front: weights {w1.shape} {w2.shape} for C={c}')
+    th, tw = cab_front_tile(c, x.element_size())
+    n_blocks = -(-h // th) * -(-w // tw)
+    cp = -(-c // 8) * 8
+    w1t, w2t = _taps_major(w1, cp), _taps_major(w2, cp)
+    s = torch.empty_like(x)
+    part = torch.empty((t, n_blocks, c), device=x.device, dtype=torch.float32)
+    lib = _build.library()
+    _build.check(lib.shiftnet_cab_front(
+        code, x.data_ptr(), w1t.data_ptr(), alpha.data_ptr(), w2t.data_ptr(),
+        s.data_ptr(), part.data_ptr(), t, c, cp, h, w, th, tw, _stream()),
+        'cab_front')
+    LAUNCHES['cab_front'] += 1
+    return s, part.sum(dim=1)
+
+
+def ca_mlp(sums: torch.Tensor, n_px: int, du1: torch.Tensor,
+           du2: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """CALayer weights (T, C) from float32 channel sums: mean in float32,
+    cast to the compute type, then 1x1 -> ReLU -> 1x1 -> sigmoid
+    (``shiftnet_tpu/ops/chw.py:ca_mlp``).  du1: (C/r, C, 1, 1); du2:
+    (C, C/r, 1, 1)."""
+    mean = (sums / n_px).to(dtype)
+    z = torch.relu(mean @ du1.flatten(1).t().to(dtype))
+    return torch.sigmoid(z @ du2.flatten(1).t().to(dtype))
+
+
+# -- B: cab_back -------------------------------------------------------------
+
+def cab_back_plain(x, s, ca, inplace=False):
+    scaled = s * ca[:, :, None, None]
+    return x.add_(scaled) if inplace else x + scaled
+
+
+def cab_back(x: torch.Tensor, s: torch.Tensor, ca: torch.Tensor, *,
+             inplace: bool = False) -> torch.Tensor:
+    """out = x + s * ca[t, c].  ``inplace`` writes over x: only for callers
+    that know x is dead afterwards."""
+    if not _on_cuda(x):
+        return cab_back_plain(x, s, ca, inplace)
+    code = _check('cab_back', x, s, ca)
+    t, c, h, w = x.shape
+    if s.shape != x.shape or ca.shape != (t, c):
+        raise ValueError(f'cab_back: s {s.shape}, ca {ca.shape}, x {x.shape}')
+    if t * c > 65535:
+        raise ValueError(f'cab_back: T*C={t * c} exceeds the grid')
+    out = x if inplace else torch.empty_like(x)
+    lib = _build.library()
+    _build.check(lib.shiftnet_cab_back(
+        code, x.data_ptr(), s.data_ptr(), ca.data_ptr(), out.data_ptr(),
+        t * c, h * w, _stream()), 'cab_back')
+    LAUNCHES['cab_back'] += 1
+    return out
+
+
+# -- C: conv -----------------------------------------------------------------
+
+def conv_pad(k: int, stride: int) -> int:
+    """Padding of ``conv`` (``shiftnet_tpu/ops/chw.py:conv_chw``)."""
+    return k // 2 if stride == 1 else (1 if k == 3 else 0)
+
+
+def conv_plain(x, w, bias, alpha, stride):
+    y = F.conv2d(x, w, stride=stride, padding=conv_pad(w.shape[-1], stride))
+    if bias is None and alpha is None:
+        return y
+    y = y.float()
+    if bias is not None:
+        y = y + bias[:, None, None]
+    if alpha is not None:
+        y = F.prelu(y, alpha)
+    return y.to(x.dtype)
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+         alpha: torch.Tensor | None, stride: int = 1) -> torch.Tensor:
+    """Direct KxK conv (K in 2, 3, 5; stride 1 or 2) with optional float32
+    bias and PReLU slope, both applied in float32 before the cast.
+
+    x: (T, Cin, H, W); w: (Cout, Cin, K, K) in x's type."""
+    if not _on_cuda(x):
+        return conv_plain(x, w, bias, alpha, stride)
+    code = _check('conv', x, w, f32=(bias, alpha))
+    t, cin, h, wd = x.shape
+    cout, cin_w, k, k2 = w.shape
+    if cin_w != cin or k != k2 or k not in (2, 3, 5) or stride not in (1, 2):
+        raise ValueError(f'conv: weight {tuple(w.shape)} stride {stride} '
+                         f'for input {tuple(x.shape)}')
+    pad = conv_pad(k, stride)
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (wd + 2 * pad - k) // stride + 1
+    out = torch.empty((t, cout, ho, wo), device=x.device, dtype=x.dtype)
+    lib = _build.library()
+    _build.check(lib.shiftnet_conv(
+        code, x.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if alpha is None else alpha.data_ptr(),
+        out.data_ptr(), t, cin, cout, h, wd, k, stride, _stream()), 'conv')
+    LAUNCHES['conv'] += 1
+    return out
+
+
+# -- D: up_skip --------------------------------------------------------------
+
+def up_skip_plain(x, w11, skip):
+    return F.conv2d(bilinear_up2x(x), w11) + skip
+
+
+def up_skip(x: torch.Tensor, w11: torch.Tensor,
+            skip: torch.Tensor) -> torch.Tensor:
+    """SkipUpSample: bilinear2x(conv1x1(x)) + skip, into a fresh output.
+
+    x: (T, Cin, h, w); w11: (Cout, Cin, 1, 1) in x's type; skip:
+    (T, Cout, 2h, 2w)."""
+    if not _on_cuda(x):
+        return up_skip_plain(x, w11, skip)
+    code = _check('up_skip', x, w11, skip)
+    t, cin, h, w = x.shape
+    cout = w11.shape[0]
+    if w11.shape != (cout, cin, 1, 1) or skip.shape != (t, cout, 2 * h, 2 * w):
+        raise ValueError(f'up_skip: w {tuple(w11.shape)}, skip '
+                         f'{tuple(skip.shape)}, x {tuple(x.shape)}')
+    if cout * 10 * 18 * x.element_size() > SMEM_BYTES:
+        raise ValueError(f'up_skip: Cout={cout} does not fit in shared memory')
+    out = torch.empty_like(skip)
+    lib = _build.library()
+    _build.check(lib.shiftnet_up_skip(
+        code, x.data_ptr(), w11.data_ptr(), skip.data_ptr(), out.data_ptr(),
+        t, cin, cout, h, w, _stream()), 'up_skip')
+    LAUNCHES['up_skip'] += 1
+    return out
+
+
+# -- the TFR U-Net on the kernels --------------------------------------------
+
+def cab(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
+        inplace: bool = False) -> torch.Tensor:
+    """Plain CAB (``layers.CAB``) as cab_front -> ca_mlp -> cab_back.
+    ``p`` holds torch-named parameters; ``name`` is the CAB's prefix."""
+    dt = x.dtype
+    s, sums = cab_front(x, p[f'{name}.body.0.weight'].to(dt),
+                        p[f'{name}.body.1.weight'],
+                        p[f'{name}.body.2.weight'].to(dt))
+    ca = ca_mlp(sums, x.shape[2] * x.shape[3],
+                p[f'{name}.CA.conv_du.0.weight'],
+                p[f'{name}.CA.conv_du.2.weight'], dt)
+    return cab_back(x, s, ca, inplace=inplace)
+
+
+def down(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
+         with_prelu: bool) -> torch.Tensor:
+    """DownSample (``layers.DownSample``): stride-2 3x3 conv with bias, or
+    bias-free followed by PReLU."""
+    if with_prelu:
+        return conv(x, p[f'{name}.down.0.weight'].to(x.dtype), None,
+                    p[f'{name}.down.1.weight'], stride=2)
+    return conv(x, p[f'{name}.down.weight'].to(x.dtype),
+                p[f'{name}.down.bias'], None, stride=2)
+
+
+def tfr_unet(p: dict[str, torch.Tensor], x: torch.Tensor, *,
+             downsample_prelu: bool = False) -> torch.Tensor:
+    """TFR_UNet (``shiftnet_tpu/ops/chw.py:tfr_unet_chw``) on the kernels.
+
+    ``p``: the U-Net's parameters by torch name (``named_parameters()`` of a
+    ``layers.TFRUNet``).  x is never written.  The CABs of the level chains
+    write over their input, which is dead there: each chain starts on the
+    fresh output of a down conv or an up_skip.  enc1 and enc2 are read again
+    by the skip CABs, so the CABs that make them and read them write fresh
+    outputs."""
+    dp = dict(with_prelu=downsample_prelu)
+    enc1 = cab(p, 'encoder_level1.0', x)
+    y = down(p, 'down12', enc1, **dp)
+    for i in range(3):
+        y = cab(p, f'encoder_level2.{i}', y, inplace=True)
+    enc2 = y
+    y = down(p, 'down23', enc2, **dp)
+    for i in range(3):
+        y = cab(p, f'encoder_level3.{i}', y, inplace=True)
+    for i in range(3):
+        y = cab(p, f'decoder_level3.{i}', y, inplace=True)
+    skip2 = cab(p, 'skip_attn2', enc2)
+    del enc2
+    y = up_skip(y, p['up32.up.1.weight'].to(y.dtype), skip2)
+    del skip2
+    for i in range(3):
+        y = cab(p, f'decoder_level2.{i}', y, inplace=True)
+    skip1 = cab(p, 'skip_attn1', enc1)
+    del enc1
+    y = up_skip(y, p['up21.up.1.weight'].to(y.dtype), skip1)
+    del skip1
+    return cab(p, 'decoder_level1.0', y, inplace=True)

@@ -1,0 +1,132 @@
+"""Where the time of one deblur_plus window goes, on the GPU.
+
+  python -m shiftnet_tpu_torch.tools.profile_forward [--plain-tfr]
+
+On seeded weights and a seeded 40x720x1280 bf16 window (the ``bench.py``
+protocol), runs the port's ``Evaluator.forward_window`` once to warm up,
+then:
+
+1. once with CUDA events around every stage of the model (the top-level
+   modules of ``GShiftNet`` and of its ``Encoder2``), printing each stage's
+   device time;
+2. once under ``torch.profiler``, printing the wall time, the device-busy
+   share of it (the union of kernel intervals), the device time of the TFR
+   kernels (``ops/chw``) against everything else, and the top kernels.
+
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import re
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from shiftnet_tpu_torch.eval.runner import Evaluator
+from shiftnet_tpu_torch.models import build_model, init_state
+
+OUR_KERNELS = ('cab_front_kernel', 'cab_back_kernel', 'conv_kernel',
+               'up_skip_kernel')
+WINDOW = (40, 720, 1280, 3)
+TOP = 15
+
+
+def stage_times(ev: Evaluator, clip: np.ndarray) -> dict[str, float]:
+    """Device ms per stage, from CUDA events recorded by forward hooks.
+    Repeated stages (orb1..orb5, the blocks of one Encoder2 level such as
+    decoder_level1, decoder_level1_1, decoder_level1_2) are summed under one
+    name."""
+    marks: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+    open_ev: dict[str, torch.cuda.Event] = {}
+    hooks = []
+    model = ev.model
+    mods = [(n, m) for n, m in model.named_children() if n != 'stage1']
+    mods += [(f'stage1.{n}', m) for n, m in model.stage1.named_children()]
+    for name, mod in mods:
+        def pre(_m, _a, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            open_ev[name] = e
+
+        def post(_m, _a, _o, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, open_ev.pop(name), e))
+        hooks += [mod.register_forward_pre_hook(pre),
+                  mod.register_forward_hook(post)]
+    try:
+        ev.forward_window(clip)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    out: dict[str, float] = defaultdict(float)
+    for name, a, b in marks:
+        out[re.sub(r'^(r?orb)\d+$', r'\1*', re.sub(r'_\d+$', '', name))] += \
+            a.elapsed_time(b)
+    return dict(out)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--plain-tfr', action='store_true',
+                    help='TFR U-Nets on the plain PyTorch ops')
+    ap.add_argument('--result_path', default='results',
+                    help='directory of the evaluator log')
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_forward: needs a CUDA device')
+
+    state = init_state(build_model('deblur_plus'), seed=0)
+    ev = Evaluator('deblur_plus', state, device='cuda',
+                   overrides={'fused_tfr': not args.plain_tfr},
+                   result_path=args.result_path)
+    clip = np.random.default_rng(1).uniform(0, 1, WINDOW).astype(np.float32)
+    ev.forward_window(clip)
+    torch.cuda.synchronize()
+
+    stages = stage_times(ev, clip)
+    total = sum(stages.values())
+    print(f'stages (device ms, CUDA events; {total:.1f} ms in all):')
+    for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f'  {ms:10.1f} ms {100 * ms / total:5.1f} %  {name}')
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.forward_window(clip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith('Command Buffer Full')]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float('-inf')
+    for a, b in spans:  # union of kernel intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    dev_us = sum(v[0] for v in by_name.values())
+    ours_us = sum(v[0] for k, v in by_name.items()
+                  if any(s in k for s in OUR_KERNELS))
+    print(f'wall {wall:.3f} s; device busy {busy_us / 1e6:.3f} s '
+          f'({100 * busy_us / 1e6 / wall:.1f} % of wall, idle '
+          f'{100 - 100 * busy_us / 1e6 / wall:.1f} %); kernel time '
+          f'{dev_us / 1e6:.3f} s, TFR kernels {ours_us / 1e6:.3f} s '
+          f'({100 * ours_us / max(dev_us, 1):.1f} %)')
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:TOP]:
+        print(f'{us / 1e3:12.2f} ms {n:6d}x  {name[:100]}')
+
+
+if __name__ == '__main__':
+    main()

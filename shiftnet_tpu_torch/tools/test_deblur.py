@@ -1,0 +1,40 @@
+"""Deblur evaluation CLI of the port (counterpart of
+``shiftnet_tpu/tools/test_deblur.py``).
+
+Usage:
+  python -m shiftnet_tpu_torch.tools.test_deblur --variant deblur_plus \\
+      --model_path ckpt.npz --data_path DeepVideoDeblurring_Dataset/GoPro \\
+      --one_len 48 [--fp32] [--save_image] [--device cuda]
+
+``--model_path`` takes the torch-keyed ``.npz`` exports of either package or
+a reference ``.pth`` checkpoint.
+"""
+import argparse
+
+from shiftnet_tpu_torch.eval.runner import Evaluator
+from shiftnet_tpu_torch.tools.params_io import load_state
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--variant', default='deblur_plus',
+                    choices=['deblur_plus'])
+    ap.add_argument('--model_path', required=True)
+    ap.add_argument('--data_path', required=True)
+    ap.add_argument('--result_path', default='infer_results')
+    ap.add_argument('--one_len', type=int, default=48)
+    ap.add_argument('--fp32', action='store_true')
+    ap.add_argument('--save_image', action='store_true')
+    ap.add_argument('--device', default='cuda')
+    args = ap.parse_args(argv)
+
+    state = load_state(args.variant, args.model_path)
+    ev = Evaluator(args.variant, state, device=args.device,
+                   result_path=args.result_path,
+                   bf16=False if args.fp32 else None,
+                   save_images=args.save_image)
+    print(ev.eval_deblur(args.data_path, one_len=args.one_len))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,216 @@
+"""The port's TFR U-Net ops (``shiftnet_tpu_torch/ops/chw.py``) against the
+JAX package on the CPU.
+
+On the CPU each op runs its plain PyTorch version; those are held here
+against the XLA twins of the Pallas kernels (``shiftnet_tpu/ops/chw_xla.py``,
+on packed ``ChwTensor`` inputs) and against the unfused flax modules, in
+float32 at normalized max error <= 1e-5.  The CUDA kernels themselves are
+held against the plain versions on the card (tests marked ``cuda``, and
+``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from shiftnet_tpu.models import layers as jl
+from shiftnet_tpu.ops import chw as jchw
+from shiftnet_tpu.ops import chw_xla
+from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
+from shiftnet_tpu_torch.models import layers, init_state
+from shiftnet_tpu_torch.ops import _build, chw
+
+CPU = jax.devices('cpu')[0]
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    prev = jax.config.jax_default_device
+    jax.config.update('jax_default_device', CPU)
+    yield
+    jax.config.update('jax_default_device', prev)
+
+
+def norm_err(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.max(np.abs(a - b)) / np.std(b)
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def to_nchw(x):
+    return np.transpose(np.asarray(x), (0, 3, 1, 2))
+
+
+def to_nhwc(x):
+    return np.transpose(np.asarray(x), (0, 2, 3, 1))
+
+
+def seeded(module, seed=0):
+    """Load seeded weights into a port module; returns its state."""
+    state = init_state(module, seed)
+    module.load_state_dict(state, strict=True)
+    return state
+
+
+def flax_params(module, state, *args):
+    """A flax module's parameter tree, shaped by ``jax.eval_shape`` of its
+    init and filled from the port's torch-keyed state."""
+    tpl = jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), *args))['params']
+    return torch_state_to_flax({k: v.numpy() for k, v in state.items()},
+                               tpl)
+
+
+@pytest.mark.parametrize('pf', [1, 4])
+def test_cab_plain_matches_xla_twin_and_flax(pf):
+    t, c, h, w = 2, 12, 16, 24
+    x = rand((t, c, h, w), 1)
+    wrap = nn.Sequential(layers.CAB(c, 3, 4))
+    state = {k.split('.', 1)[1]: v for k, v in seeded(wrap).items()}
+    with torch.no_grad():
+        got = chw.cab(dict(wrap.named_parameters()), '0',
+                      torch.from_numpy(x))
+    fmod = jl.CAB(c, kernel_size=3, reduction=4)
+    xn = jnp.asarray(to_nhwc(x))
+    params = flax_params(fmod, state, xn)
+    twin = chw_xla.cab_chw_xla(jchw.from_nhwc(xn, padr=2, pf=pf), params,
+                               reduction=4)
+    assert norm_err(got.numpy(), to_nchw(jchw.to_nhwc(twin))) < TOL
+    flax_out = fmod.apply({'params': params}, xn)
+    assert norm_err(got.numpy(), to_nchw(flax_out)) < TOL
+    with torch.no_grad():  # the port's layer path
+        layer_out = wrap(torch.from_numpy(x))
+    assert norm_err(layer_out.numpy(), to_nchw(flax_out)) < TOL
+
+
+def test_cab_front_plain_sums_are_channel_sums():
+    x = torch.from_numpy(rand((2, 8, 6, 10), 2))
+    w1 = torch.from_numpy(0.2 * rand((8, 8, 3, 3), 3))
+    w2 = torch.from_numpy(0.2 * rand((8, 8, 3, 3), 4))
+    s, sums = chw.cab_front(x, w1, torch.tensor([0.25]), w2)
+    assert sums.dtype == torch.float32 and sums.shape == (2, 8)
+    torch.testing.assert_close(sums, s.sum(dim=(2, 3)))
+
+
+@pytest.mark.parametrize('k', [2, 3, 5])
+@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('bias,prelu', [(False, False), (True, False),
+                                        (False, True), (True, True)])
+def test_conv_plain_matches_xla_twin(k, stride, bias, prelu):
+    t, cin, cout, h, w = 2, 6, 10, 16, 24
+    x = rand((t, cin, h, w), 5)
+    wt = (rand((cout, cin, k, k), 6) / np.sqrt(cin * k * k)).astype(
+        np.float32)
+    b = 0.1 * rand((cout,), 7) if bias else None
+    a = np.array([0.3], np.float32) if prelu else None
+    got = chw.conv(torch.from_numpy(x), torch.from_numpy(wt),
+                   None if b is None else torch.from_numpy(b),
+                   None if a is None else torch.from_numpy(a), stride)
+    xc = jchw.from_nhwc(jnp.asarray(to_nhwc(x)), padr=4, pf=2)
+    twin = chw_xla.conv_chw_xla(
+        xc, jnp.asarray(np.transpose(wt, (2, 3, 1, 0))),
+        None if b is None else jnp.asarray(b),
+        None if a is None else jnp.asarray(a), stride=stride)
+    want = to_nchw(jchw.to_nhwc(twin))
+    # The packed conv keeps the grid's extent; torch's padding rule gives
+    # H+1 rows for k=2 s=1 and H/2-1 for k=5 s=2.  They agree where both
+    # are defined.
+    ho = min(got.shape[2], want.shape[2])
+    wo = min(got.shape[3], want.shape[3])
+    assert abs(got.shape[2] - want.shape[2]) <= 2
+    assert norm_err(got[:, :, :ho, :wo].numpy(), want[:, :, :ho, :wo]) < TOL
+
+
+def test_up_skip_plain_matches_xla_twin_and_flax():
+    t, cin, cout, h, w = 2, 12, 8, 8, 12
+    x = rand((t, cin, h, w), 8)
+    skip = rand((t, cout, 2 * h, 2 * w), 9)
+    mod = layers.SkipUpSample(cin, cout)
+    state = seeded(mod, 1)
+    got = chw.up_skip(torch.from_numpy(x), mod.up[1].weight.detach(),
+                      torch.from_numpy(skip))
+    fmod = jl.SkipUpSample(cout)
+    xn, sn = jnp.asarray(to_nhwc(x)), jnp.asarray(to_nhwc(skip))
+    params = flax_params(fmod, state, xn, sn)
+    twin = chw_xla.up_skip_chw_xla(jchw.from_nhwc(xn, padr=2, pf=1), params,
+                                   jchw.from_nhwc(sn, padr=2, pf=2))
+    assert norm_err(got.numpy(), to_nchw(jchw.to_nhwc(twin))) < TOL
+    flax_out = fmod.apply({'params': params}, xn, sn)
+    assert norm_err(got.numpy(), to_nchw(flax_out)) < TOL
+
+
+@pytest.mark.parametrize('downsample_prelu', [False, True])
+def test_tfr_unet_matches_flax(downsample_prelu):
+    t, c0, h, w = 2, 8, 16, 24
+    x = rand((t, c0, h, w), 10)  # random borders: every edge carries signal
+    unet = layers.TFRUNet(c0, scale_unetfeats=4, reduction=4,
+                          downsample_prelu=downsample_prelu, fused=True)
+    state = seeded(unet, 2)
+    xt = torch.from_numpy(x.copy())
+    with torch.no_grad():
+        got = unet(xt)
+        unet.fused = False
+        layer_out = unet(xt)
+    np.testing.assert_array_equal(xt.numpy(), x)  # the input is not written
+    fmod = jl.TFRUNet(c0, kernel_size=3, reduction=4, scale_unetfeats=4,
+                      downsample_prelu=downsample_prelu)
+    xn = jnp.asarray(to_nhwc(x))
+    params = flax_params(fmod, state, xn)
+    want = to_nchw(jax.jit(lambda p, v: fmod.apply({'params': p}, v))(
+        params, xn))
+    assert norm_err(got.numpy(), want) < TOL
+    assert norm_err(layer_out.numpy(), want) < TOL
+
+
+def test_ops_reject_other_devices():
+    x = torch.empty((1, 4, 4, 4), device='meta')
+    with pytest.raises(ValueError, match='device'):
+        chw.cab_back(x, x, torch.empty((1, 4), device='meta'))
+
+
+def test_cpu_tensors_take_the_plain_path_without_counting():
+    chw.reset_launches()
+    x = torch.from_numpy(rand((1, 8, 4, 6), 11))
+    w = torch.from_numpy(0.1 * rand((8, 8, 3, 3), 12))
+    s, sums = chw.cab_front(x, w, torch.tensor([0.25]), w)
+    chw.cab_back(x, s, torch.sigmoid(sums))
+    chw.conv(x, w, None, None, 2)
+    chw.up_skip(x, torch.from_numpy(rand((8, 8, 1, 1), 13)),
+                torch.from_numpy(rand((1, 8, 8, 12), 14)))
+    assert set(chw.LAUNCHES.values()) == {0}
+
+
+def test_cab_front_tile_fits_shared_memory():
+    for c in (24, 36, 48, 80):
+        for itemsize in (2, 4):
+            th, tw = chw.cab_front_tile(c, itemsize)
+            assert chw.cab_front_smem(c, itemsize, th, tw) <= chw.SMEM_BYTES
+    assert chw.cab_front_tile(80, 4) == (16, 16)
+    assert chw.cab_front_tile(96, 4) == (8, 16)
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path / 'no_cuda'))
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _build.build()
+
+
+def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
+    src = tmp_path / 'csrc'
+    src.mkdir()
+    (src / 'k.cu').write_text('// one\n')
+    monkeypatch.setattr(_build, 'CSRC', src)
+    first = _build.library_path()
+    assert first == _build.library_path()
+    (src / 'k.cu').write_text('// two\n')
+    assert _build.library_path() != first

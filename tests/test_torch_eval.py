@@ -1,0 +1,141 @@
+"""The port's evaluation harness: ``Evaluator.forward_window`` against the
+JAX model's forward, the deblur CLI end to end, and the port's freedom from
+JAX, on the CPU.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from shiftnet_tpu.eval.window import half_slices
+from shiftnet_tpu.models import build_model as jax_build_model
+from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
+from shiftnet_tpu_torch.eval.runner import Evaluator
+from shiftnet_tpu_torch.models import build_model, init_state
+
+REPO = Path(__file__).resolve().parents[1]
+CPU = jax.devices('cpu')[0]
+TINY = dict(n_feats0=8, n_feats2=48, num_orbs=1, tfr_scale=4, shift_rounds=2)
+HALO = 2
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    prev = jax.config.jax_default_device
+    jax.config.update('jax_default_device', CPU)
+    yield
+    jax.config.update('jax_default_device', prev)
+
+
+def norm_err(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.max(np.abs(a - b)) / np.std(b)
+
+
+@pytest.fixture(scope='module')
+def tiny():
+    """(port state, jitted JAX forward on the same weights)."""
+    state = init_state(build_model('deblur_plus', **TINY), seed=11)
+    jmodel = jax_build_model('deblur_plus', past_frames=HALO,
+                             future_frames=HALO, **TINY)
+    tpl = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((2 * HALO + 1, 32, 32, 3))))
+    params = torch_state_to_flax({k: v.numpy() for k, v in state.items()},
+                                 tpl['params'])
+    fwd = jax.jit(lambda v: jmodel.apply({'params': params}, v))
+    return state, lambda x: np.asarray(fwd(jnp.asarray(x)))
+
+
+def clip(t, h, w, seed):
+    return np.random.default_rng(seed).uniform(0, 1, (t, h, w, 3)).astype(
+        np.float32)
+
+
+def evaluator(state, tmp_path):
+    return Evaluator('deblur_plus', state, device='cpu', bf16=False,
+                     overrides=TINY, result_path=str(tmp_path))
+
+
+def test_forward_window_full_plan_matches_jax(tiny, tmp_path):
+    state, jax_fwd = tiny
+    x = clip(6, 80, 32, 12)
+    ev = evaluator(state, tmp_path)
+    assert ev.window_plan(x.shape) == 'full'
+    got = ev.forward_window(x)
+    assert got.shape == (6 - 2 * HALO, 80, 32, 3) and got.dtype == np.float32
+    assert norm_err(got, jax_fwd(x)) < 1e-4
+
+
+def test_forward_window_half_plan_matches_jax_tiles(tiny, tmp_path,
+                                                   monkeypatch):
+    state, jax_fwd = tiny
+    x = clip(6, 96, 32, 13)  # half_slices: two 80-row tiles
+    ev = evaluator(state, tmp_path)
+    monkeypatch.setattr(ev, '_budget', lambda: 1)  # a one-byte device
+    assert ev.window_plan(x.shape) == 'half'
+    got = ev.forward_window(x)
+    want = np.zeros_like(got)
+    for in_sl, crop_sl, out_sl in half_slices(96, 32):
+        o = jax_fwd(x[:, in_sl[0], in_sl[1]])
+        want[:, out_sl[0], out_sl[1]] = o[:, crop_sl[0], crop_sl[1]]
+    assert norm_err(got, want) < 1e-4
+    log = Path(ev.logger.path).read_text()
+    assert '-> half' in log
+
+
+def test_deblur_cli_logs_psnr_ssim(tmp_path):
+    imageio = pytest.importorskip('imageio.v2')
+    rng = np.random.default_rng(14)
+    data = tmp_path / 'data'
+    for video in ('clip1', 'clip2'):
+        base = rng.integers(0, 255, (32, 32, 3))
+        for sub in ('blur', 'gt'):
+            d = data / sub / video
+            d.mkdir(parents=True)
+            for i in range(6):
+                noise = rng.integers(-8, 8, (32, 32, 3))
+                img = np.clip(base + noise, 0, 255).astype(np.uint8)
+                imageio.imwrite(d / f'{i:03d}.png', img)
+    state = init_state(build_model('deblur_plus'), seed=15)
+    npz = tmp_path / 'net.npz'
+    np.savez(npz, **{k: v.numpy() for k, v in state.items()})
+    res = subprocess.run(
+        [sys.executable, '-m', 'shiftnet_tpu_torch.tools.test_deblur',
+         '--model_path', str(npz), '--data_path', str(data),
+         '--result_path', str(tmp_path / 'out'), '--one_len', '2',
+         '--fp32', '--device', 'cpu'],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, 'PYTHONPATH': str(REPO)})
+    assert res.returncode == 0, res.stderr
+    for video in ('clip1', 'clip2'):
+        assert f'> {video}-00000 PSNR=' in res.stdout
+        assert f'# Video:{video} AVG-PSNR=' in res.stdout
+    assert '# Total AVG-PSNR=' in res.stdout and 'AVG-SSIM=' in res.stdout
+    logs = list((tmp_path / 'out').glob('inference_log_*.txt'))
+    assert logs and 'AVG-SSIM=' in logs[0].read_text()
+
+
+def test_port_imports_no_jax():
+    script = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        "import importlib, pkgutil\n"
+        "import shiftnet_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    shiftnet_tpu_torch.__path__, 'shiftnet_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, 'PYTHONPATH': str(REPO)})
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
