@@ -7,18 +7,26 @@ Phases, each of which must pass:
 
 1. device: the card's name and power limit, torch and CUDA versions.  There
    is no CPU path: without a CUDA device the run fails.
-2. build: compile the four CUDA kernels from ``shiftnet_tpu_torch/csrc``.
+2. build: compile the eight CUDA kernels from ``shiftnet_tpu_torch/csrc``
+   into one library (one nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), in float32 (TF32
-   off) and bfloat16, with median times over 20 runs.
-4. slice: the port's ``Evaluator('deblur_plus')`` on a seeded 40x720x1280
-   bf16 window through ``forward_window``, with every kernel launched; then
-   the whole model with its TFR U-Nets on the kernels against the same model
-   on the plain versions, on a 5x720x1280 float32 window.
+   off) and bfloat16, with median times over 20 runs, the least time the
+   card could take for the same work (``bound_ms``) and, where one PyTorch
+   call computes the same function, that call's time (``library_ms``).
+4. slice: the port's default ``Evaluator('deblur_plus')`` (the
+   ``fused_chw`` configuration, the main path) on a seeded 40x720x1280 bf16
+   window through ``forward_window``, with every kernel's launches counted
+   against the counts the path implies and the peak device memory held
+   against the window plan's estimate; the same for the ``fused_tfr``
+   configuration (the TFR U-Nets' kernels only); then the whole model on the
+   kernels, in both configurations, against the all-plain model on a
+   5x720x1280 window, in float32.
 
 The line before the last is a JSON object with each kernel's launches on the
-main path, its error and its times; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises before that line.
+main path (and on the ``fused_tfr`` path), its error, its times and its
+bound; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+raises before those lines.
 """
 from __future__ import annotations
 
@@ -36,16 +44,38 @@ import numpy as np
 # different orders in float32, so single-ulp rounding flips land on some of
 # the largest of the ~10^8 outputs: one bf16 ulp (2^-7 relative) at
 # max|p| ~ 6 std(p) is 0.03-0.05 std(p).  up_skip also rounds at other
-# points (its 1x1 conv runs before the upsample).  The normalized mean error
+# points (its 1x1 conv runs before the upsample).  An output with a heavier
+# tail has its largest values further out: naf_gate's g = d[:n] * d[n:] is a
+# product of two such values, max|g| ~ 20 std(g), where one ulp is ~0.16
+# std(g).  So the bf16 max bound is one ulp at the largest plain output,
+# 2^-7 max|p| / std(p), and never under 5e-2.  The normalized mean error
 # must stay under half a bf16 ulp, so a systematic error cannot hide under
-# the max bound.
+# the max bound.  shift_round only copies and is held bit for bit.
 TOL = {'float32': 1e-4, 'bfloat16': 5e-2}
+BF16_ULP = 2.0 ** -7
 MEAN_TOL = {'float32': 1e-6, 'bfloat16': 2 ** -8}
-SLICE_TOL_F32 = 1e-3  # whole model: ~150 convs of float32 reordering
+SLICE_TOL_F32 = 1e-3  # whole model: ~400 convs of float32 reordering
 T_CHECK = 4
 HALO = 2
 ONE_LEN = 36
 H, W = 720, 1280
+# Published H100 SXM rates (NVIDIA data sheet): device memory, and the
+# dense peak for the operands' type (bf16 tensor cores; float32 CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {'bfloat16': 989e12, 'float32': 67e12}
+# Kernel launches of one deblur_plus window on the fused_chw path: 10 TFR
+# U-Nets x (16 CABs, 2 down convs, 2 up_skips); feat_extract's CAB and
+# Encoder2's 11 CABs; feat_extract, conv_trans, down01, down12, down23,
+# upsample_conv, conv_hr0, rconcat and conv_last; up32 and up21; 7 shift
+# blocks x 8 rounds x (1 shift, CAB2 + CAB1 x 3 kernels).
+MAIN_PATH_LAUNCHES = {'cab_front': 172, 'cab_back': 172, 'conv': 29,
+                      'up_skip': 22, 'shift_round': 56, 'naf_gate': 112,
+                      'naf_rep': 112, 'naf_back': 112}
+# The fused_tfr configuration (the TFR U-Nets' kernels only), still driven:
+# 10 TFR U-Nets x (16 CABs, 2 down convs, 2 up_skips).
+TFR_PATH_LAUNCHES = {'cab_front': 160, 'cab_back': 160, 'conv': 20,
+                     'up_skip': 20, 'shift_round': 0, 'naf_gate': 0,
+                     'naf_rep': 0, 'naf_back': 0}
 
 KERNELS = {
     'cab_front': ('shiftnet_tpu_torch/csrc/cab_front.cu',
@@ -57,6 +87,14 @@ KERNELS = {
              'shiftnet_tpu/ops/chw.py:865', None),
     'up_skip': ('shiftnet_tpu_torch/csrc/up_skip.cu',
                 'shiftnet_tpu/ops/chw.py:1195', None),
+    'shift_round': ('shiftnet_tpu_torch/csrc/shift_round.cu',
+                    'shiftnet_tpu/ops/naf_chw.py:265', None),
+    'naf_gate': ('shiftnet_tpu_torch/csrc/naf_gate.cu',
+                 'shiftnet_tpu/ops/naf_chw.py:685', None),
+    'naf_rep': ('shiftnet_tpu_torch/csrc/naf_rep.cu',
+                'shiftnet_tpu/ops/naf_chw.py:909', None),
+    'naf_back': ('shiftnet_tpu_torch/csrc/naf_back.cu',
+                 'shiftnet_tpu/ops/naf_chw.py:1019', None),
 }
 
 
@@ -105,16 +143,49 @@ def _median_ms(fn, n=20, warmup=3):
 
 
 def _norm_err(k, p):
-    """(normalized max error, normalized mean error, max abs error)."""
+    """(normalized max error, normalized mean error, max abs error,
+    max|p| / std(p))."""
     d = (k.double() - p.double()).abs()
     sd = p.double().std()
-    return (float(d.max() / sd), float(d.mean() / sd), float(d.max()))
+    return (float(d.max() / sd), float(d.mean() / sd), float(d.max()),
+            float(p.double().abs().max() / sd))
+
+
+def _max_tol(dtn, tail):
+    """The normalized max error bound for an output whose largest value is
+    ``tail`` standard deviations out (see TOL)."""
+    if dtn == 'bfloat16':
+        return max(TOL[dtn], BF16_ULP * tail)
+    return TOL[dtn]
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+class Case:
+    """One kernel call: ``kernel`` and ``plain`` compute the same function
+    on ``inputs``; ``ops`` counts its arithmetic (2 per multiply-add);
+    ``library`` is one PyTorch call computing it, or None."""
+
+    def __init__(self, kernel, plain, inputs, ops, library=None,
+                 exact=False):
+        self.kernel, self.plain, self.inputs = kernel, plain, inputs
+        self.ops, self.library, self.exact = ops, library, exact
 
 
 def _cases():
-    """(kernel, label, make(rng, dtype) -> (kernel_fn, plain_fn))."""
+    """(kernel name, label, make(rng, dtype) -> Case), the largest
+    main-path shape of each kernel first."""
     import torch
-    from shiftnet_tpu_torch.ops import chw
+    import torch.nn.functional as F
+    from shiftnet_tpu_torch.models import init_state, layers
+    from shiftnet_tpu_torch.ops import chw, naf_chw
 
     def arr(rng, shape, dtype, scale=1.0):
         return torch.from_numpy(
@@ -130,30 +201,65 @@ def _cases():
         return torch.from_numpy(
             (scale * rng.standard_normal(shape)).astype(np.float32)).cuda()
 
+    def unit(rng, shape, dtype):
+        return torch.from_numpy(rng.uniform(0, 1, shape).astype(
+            np.float32)).to('cuda', dtype)
+
+    def naf_prep(rng, n, cab2, dtype, opts=False):
+        """prep_naf of a seeded CAB2 / CAB1 whose LayerNorm is not the
+        identity (LN of a zero pixel is then nonzero, so the halo masks
+        matter) and, with ``opts``, a nonzero last bias."""
+        kw = dict(kernel_size=5, reduction=4, mid_ca=opts, last_bias=opts)
+        mod = (layers.CAB2(n, n // 2, **kw) if cab2
+               else layers.CAB1(n, **kw))
+        state = init_state(mod, int(rng.integers(1 << 30)))
+        for key, v in state.items():
+            if key.startswith('norm.') or key.endswith('.bias'):
+                state[key] = v + torch.from_numpy(
+                    0.3 * rng.standard_normal(v.shape).astype(np.float32))
+            elif key == 'beta':
+                state[key] = torch.from_numpy(
+                    rng.standard_normal(v.shape).astype(np.float32))
+        mod.load_state_dict(state, strict=True)
+        p = {k: v.detach().cuda() for k, v in mod.named_parameters()}
+        return naf_chw.prep_naf(p, '', dtype, mid_ca=opts, last_bias=opts)
+
     cases = []
-    for c, h, w in ((24, H, W), (36, H // 2, W // 2), (48, H // 4, W // 4)):
+    levels = ((H // 2, W // 2), (H // 4, W // 4), (H // 8, W // 8))
+    n, add_c, number = 80, 40, 5
+
+    # -- rows 1-3: cab_front, cab_back (TFR widths, then Encoder2's C=80)
+    for c, h, w in ((24, H, W), (36, H // 2, W // 2), (48, H // 4, W // 4),
+                    (80, H // 2, W // 2)):
         def front(rng, dt, c=c, h=h, w=w):
             x = arr(rng, (T_CHECK, c, h, w), dt)
             w1, w2 = wgt(rng, (c, c, 3, 3), dt), wgt(rng, (c, c, 3, 3), dt)
             alpha = torch.full((1,), 0.25, device='cuda')
-            return (lambda: chw.cab_front(x, w1, alpha, w2),
-                    lambda: chw.cab_front_plain(x, w1, alpha, w2))
+            return Case(lambda: chw.cab_front(x, w1, alpha, w2),
+                        lambda: chw.cab_front_plain(x, w1, alpha, w2),
+                        [x, w1, alpha, w2], 2 * 2 * 9 * c * c * x[:, 0].numel())
 
         def back(rng, dt, c=c, h=h, w=w):
             x = arr(rng, (T_CHECK, c, h, w), dt)
             s = arr(rng, (T_CHECK, c, h, w), dt)
-            ca = torch.from_numpy(rng.uniform(0, 1, (T_CHECK, c)).astype(
-                np.float32)).to('cuda', dt)
-            return (lambda: chw.cab_back(x, s, ca),
-                    lambda: chw.cab_back_plain(x, s, ca))
+            ca = unit(rng, (T_CHECK, c), dt)
+            return Case(lambda: chw.cab_back(x, s, ca),
+                        lambda: chw.cab_back_plain(x, s, ca),
+                        [x, s, ca], 2 * x.numel(),
+                        lambda: torch.addcmul(x, s, ca[:, :, None, None]))
         cases.append(('cab_front', f'C={c} {h}x{w}', front))
         cases.append(('cab_back', f'C={c} {h}x{w}', back))
 
+    # -- row 4: conv (TFR downsamples, then the standalone convs)
     conv_shapes = (  # cin, cout, k, stride, bias, prelu, h, w
         (24, 36, 3, 2, True, False, H, W),
         (36, 48, 3, 2, True, False, H // 2, W // 2),
         (24, 24, 3, 1, False, True, H // 2, W // 2),
-        (24, 3, 5, 1, False, False, H, W),
+        (24, 3, 5, 1, False, False, H, W),             # conv_last
+        (3, 24, 3, 1, True, False, H, W),              # feat_extract
+        (24, 80, 2, 2, False, True, H, W),             # down01
+        (80, 96, 3, 1, True, False, H // 2, W // 2),   # upsample_conv
+        (72, 24, 3, 1, True, False, H, W),             # rconcat
     )
     for cin, cout, k, st, bias, pre, h, w in conv_shapes:
         def cv(rng, dt, cin=cin, cout=cout, k=k, st=st, bias=bias, pre=pre,
@@ -162,64 +268,143 @@ def _cases():
             wt = wgt(rng, (cout, cin, k, k), dt)
             b = f32(rng, (cout,), 0.01) if bias else None
             a = torch.full((1,), 0.25, device='cuda') if pre else None
-            return (lambda: chw.conv(x, wt, b, a, st),
-                    lambda: chw.conv_plain(x, wt, b, a, st))
+            pad = chw.conv_pad(k, st)
+            n_out = T_CHECK * ((h + 2 * pad - k) // st + 1) * (
+                (w + 2 * pad - k) // st + 1)
+            lib = None
+            if not pre:
+                bl = None if b is None else b.to(dt)
+                lib = lambda: F.conv2d(x, wt, bl, st, pad)  # noqa: E731
+            return Case(lambda: chw.conv(x, wt, b, a, st),
+                        lambda: chw.conv_plain(x, wt, b, a, st),
+                        [x, wt, b, a], 2 * k * k * cin * cout * n_out, lib)
         cases.append(('conv', f'{cin}->{cout} k{k} s{st}'
                       f'{" bias" if bias else ""}{" prelu" if pre else ""}'
                       f' {h}x{w}', cv))
 
-    for cin, cout, h, w in ((48, 36, H // 4, W // 4),
-                            (36, 24, H // 2, W // 2)):
+    # -- row 6: up_skip (TFR, then Encoder2's up21 / up32 at C=80)
+    for cin, cout, h, w in ((36, 24, H // 2, W // 2),
+                            (48, 36, H // 4, W // 4),
+                            (80, 80, H // 4, W // 4)):
         def up(rng, dt, cin=cin, cout=cout, h=h, w=w):
             x = arr(rng, (T_CHECK, cin, h, w), dt)
             w11 = wgt(rng, (cout, cin, 1, 1), dt)
             skip = arr(rng, (T_CHECK, cout, 2 * h, 2 * w), dt)
-            return (lambda: chw.up_skip(x, w11, skip),
-                    lambda: chw.up_skip_plain(x, w11, skip))
+            return Case(lambda: chw.up_skip(x, w11, skip),
+                        lambda: chw.up_skip_plain(x, w11, skip),
+                        [x, w11, skip], 2 * cin * cout * T_CHECK * h * w)
         cases.append(('up_skip', f'{cin}->{cout} {h}x{w}->{2 * h}x{2 * w}',
                       up))
+
+    # -- rows 7-10: the shift-block kernels at the three Encoder2 levels
+    for h, w in levels:
+        for reverse in (False, True):
+            def shift(rng, dt, h=h, w=w, reverse=reverse):
+                x = arr(rng, (T_CHECK, n, h, w), dt)
+                kw = dict(reverse=reverse, boundary_patch=True)
+                return Case(lambda: naf_chw.shift_round(x, number, **kw),
+                            lambda: naf_chw.shift_round_plain(x, number,
+                                                              **kw),
+                            [x], 0, exact=True)
+            cases.append(('shift_round', f'C={n} {h}x{w} '
+                          f'{"reverse" if reverse else "forward"} patch',
+                          shift))
+        for cab2 in (True, False):
+            def gate(rng, dt, h=h, w=w, cab2=cab2):
+                prep = naf_prep(rng, n, cab2, dt)
+                y = arr(rng, (T_CHECK, n, h, w), dt)
+                hw = arr(rng, (T_CHECK, add_c, h, w), dt) if cab2 else None
+                cin = n + (add_c if cab2 else 0)
+                px = T_CHECK * h * w
+                used = [prep[k] for k in ('wg', 'c1', 'c2', 'dw0', 'dwc')]
+                return Case(lambda: naf_chw.naf_gate(y, hw, prep),
+                            lambda: naf_chw.naf_gate_plain(y, hw, prep),
+                            [y, hw, *used],
+                            2 * px * (2 * n * cin + 9 * (cin - n) + 9 * 2 * n)
+                            + px * n)
+            cases.append(('naf_gate', f'{"CAB2" if cab2 else "CAB1"} n={n} '
+                          f'{h}x{w}', gate))
+        for opts in ((False, True) if h == H // 2 else (False,)):
+            def rep(rng, dt, h=h, w=w, opts=opts):
+                prep = naf_prep(rng, n, True, dt)
+                g = arr(rng, (T_CHECK, n, h, w), dt)
+                cag = unit(rng, (T_CHECK, n), dt) if opts else None
+                return Case(lambda: naf_chw.naf_rep(g, cag, prep),
+                            lambda: naf_chw.naf_rep_plain(g, cag, prep),
+                            [g, cag, prep['rep'], prep['w4']],
+                            2 * T_CHECK * h * w * (25 * 8 * n + 2 * n * n))
+
+            def back(rng, dt, h=h, w=w, opts=opts):
+                prep = naf_prep(rng, n, False, dt, opts=opts)
+                y = arr(rng, (T_CHECK, n, h, w), dt)
+                s = arr(rng, (T_CHECK, n, h, w), dt)
+                ca = unit(rng, (T_CHECK, n), dt)
+                return Case(lambda: naf_chw.naf_back(y, s, ca, prep),
+                            lambda: naf_chw.naf_back_plain(y, s, ca, prep),
+                            [y, s, ca, prep['w7'], prep['beta'], prep['b7']],
+                            2 * T_CHECK * h * w * n * n)
+            cases.append(('naf_rep', f'n={n} {h}x{w}'
+                          f'{" cag" if opts else ""}', rep))
+            cases.append(('naf_back', f'n={n} {h}x{w}'
+                          f'{" b7" if opts else ""}', back))
     return cases
 
 
 def kernel_phase(card):
-    """Each kernel against its plain version; returns per-kernel records."""
+    """Each kernel against its plain version; returns per-kernel records
+    (the bf16 times and bound of each kernel's first case)."""
     import torch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f'kernels: normalized max error tolerance {TOL}, normalized mean '
-          f'error tolerance {MEAN_TOL}', flush=True)
-    rec = {name: {'max_abs_err': 0.0, 'ms': None, 'plain_ms': None}
-           for name in KERNELS}
+          f'error tolerance {MEAN_TOL}; shift_round bit for bit', flush=True)
+    rec = {name: {'max_abs_err': 0.0} for name in KERNELS}
     failed = []
     for i, (name, label, make) in enumerate(_cases()):
         for dtn in ('float32', 'bfloat16'):
             dt = getattr(torch, dtn)
             rng = np.random.default_rng(1000 + i)
-            kfn, pfn = make(rng, dt)
+            case = make(rng, dt)
             with torch.inference_mode():
-                k_out, p_out = kfn(), pfn()
+                k_out = _outputs(case.kernel())
+                p_out = _outputs(case.plain())
                 torch.cuda.synchronize()
-                if isinstance(k_out, tuple):  # cab_front: (s, sums)
-                    errs = [_norm_err(a, b) for a, b in zip(k_out, p_out)]
-                else:
-                    errs = [_norm_err(k_out, p_out)]
-                err = max(e[0] for e in errs)
+                errs = [_norm_err(a, b) for a, b in zip(k_out, p_out)]
+                worst = max(errs, key=lambda e: e[0] / _max_tol(dtn, e[3]))
+                err, tol = worst[0], _max_tol(dtn, worst[3])
                 mean_err = max(e[1] for e in errs)
                 abs_err = max(e[2] for e in errs)
-                ms = _median_ms(kfn)
-                pms = _median_ms(pfn)
-            ok = err <= TOL[dtn] and mean_err <= MEAN_TOL[dtn]
-            print(f'kernel {name:9s} {label:34s} {dtn:8s} err {err:.3e} '
-                  f'mean {mean_err:.2e} {"ok" if ok else "FAIL"}  kernel '
-                  f'{ms:.3f} ms  plain {pms:.3f} ms  [{card}]', flush=True)
+                if case.exact:
+                    ok = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+                else:
+                    ok = all(e[0] <= _max_tol(dtn, e[3])
+                             and e[1] <= MEAN_TOL[dtn] for e in errs)
+                ms = _median_ms(case.kernel)
+                pms = _median_ms(case.plain)
+                lms = None if case.library is None else _median_ms(
+                    case.library)
+            nbytes = _nbytes(case.inputs) + _nbytes(k_out)
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * case.ops / PEAK_OPS_PER_S[dtn]
+            bound = max(t_bytes, t_ops)
+            print(f'kernel {name:11s} {label:36s} {dtn:8s} err {err:.3e} '
+                  f'(tol {tol:.2e}) mean {mean_err:.2e} '
+                  f'{"ok" if ok else "FAIL"}  kernel '
+                  f'{ms:.3f} ms  plain {pms:.3f} ms  library '
+                  f'{"none" if lms is None else f"{lms:.3f} ms"}  bound '
+                  f'{bound:.3f} ms ({nbytes / 1e6:.1f} MB, '
+                  f'{case.ops / 1e9:.1f} GFLOP)  [{card}]', flush=True)
             if not ok:
                 failed.append(f'{name} {label} {dtn}')
             r = rec[name]
             if dtn == 'bfloat16':
                 r['max_abs_err'] = max(r['max_abs_err'], abs_err)
-                if r['ms'] is None:  # first case: the largest main-path shape
-                    r['ms'], r['plain_ms'] = ms, pms
-            del kfn, pfn, k_out, p_out
+                if 'ms' not in r:  # first case: the largest main-path shape
+                    r.update(ms=ms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bound,
+                             bound_by='bytes' if t_bytes >= t_ops
+                             else 'operations')
+            del case, k_out, p_out
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f'kernels disagree with their plain versions: '
@@ -232,69 +417,98 @@ def _clip(t, seed):
     return rng.uniform(0.0, 1.0, (t, H, W, 3)).astype(np.float32)
 
 
-def slice_phase(card, logs):
-    """deblur_plus windows through the port's Evaluator (logs under
-    ``logs``); returns the kernel launches of the main-path run."""
+def _drive(ev, clip, expected, label, card, timed):
+    """One window through ``ev.forward_window`` with the launch counts set
+    to 0 just before and read just after, then ``timed`` timed windows;
+    the peak device memory of all of them is held against the window
+    plan's estimate.  Returns the counts."""
     import torch
-    from shiftnet_tpu_torch.eval.runner import Evaluator
-    from shiftnet_tpu_torch.models import build_model, init_state
     from shiftnet_tpu_torch.ops import chw
 
-    state = init_state(build_model('deblur_plus'), seed=0)
-    ev = Evaluator('deblur_plus', state, device='cuda', result_path=logs)
-    t = ONE_LEN + 2 * HALO
-    clip = _clip(t, seed=1)
+    t = clip.shape[0]
     plan = ev.window_plan(clip.shape)
-    print(f'slice: window {clip.shape} plan {plan}', flush=True)
-
+    estimate = t * H * W * ev.bytes_per_px
+    print(f'slice: {label} window {clip.shape} plan {plan}, estimated peak '
+          f'{estimate / 1e9:.3f} GB ({ev.bytes_per_px} B/px)', flush=True)
     torch.cuda.reset_peak_memory_stats()
     chw.reset_launches()
     out = ev.forward_window(clip)
     launches = dict(chw.LAUNCHES)
-    print(f'slice: main-path launches {launches}', flush=True)
-    if out.shape != (ONE_LEN, H, W, 3):
-        raise AssertionError(f'output shape {out.shape}')
+    print(f'slice: {label} launches {launches}', flush=True)
+    if out.shape != (t - 2 * HALO, H, W, 3):
+        raise AssertionError(f'{label}: output shape {out.shape}')
     if not np.isfinite(out).all():
-        raise AssertionError('non-finite output')
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f'kernels not launched on the main path: '
-                             f'{missing}')
+        raise AssertionError(f'{label}: non-finite output')
+    if launches != expected:
+        raise AssertionError(f'{label}: launches {launches}, expected '
+                             f'{expected}')
     times = []
-    for _ in range(3):
+    for _ in range(timed):
         t0 = time.perf_counter()
         ev.forward_window(clip)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    fps = 3 * ONE_LEN / sum(times)
-    print(f'slice: deblur_plus 720p bf16 window T={t} plan {plan}: '
-          f'{fps:.4f} fps (windows {", ".join(f"{s:.3f}" for s in times)} s)'
-          f' peak {peak / 1e9:.3f} GB [{card}]', flush=True)
-    del ev, out
-    torch.cuda.empty_cache()
+    fps = timed * (t - 2 * HALO) / sum(times)
+    print(f'slice: deblur_plus 720p bf16 {label} window T={t} plan {plan}: '
+          f'{fps:.4f} fps (windows {", ".join(f"{s:.3f}" for s in times)} '
+          f's) peak {peak / 1e9:.3f} GB = {peak / (t * H * W):.0f} B/px '
+          f'against the estimate {estimate / 1e9:.3f} GB [{card}]',
+          flush=True)
+    if peak > estimate:
+        raise AssertionError(f'{label}: the window plan underestimates the '
+                             'peak')
+    return launches
 
-    # Kernel TFR vs plain TFR, whole model, one output frame at 720p.
+
+def slice_phase(card, logs):
+    """deblur_plus windows through the port's default Evaluator
+    (``fused_chw``, the main path) and through the ``fused_tfr``
+    configuration, each with its own launch counts (logs under ``logs``);
+    then the whole model on the kernels against the all-plain model.
+    Returns the launches of each path."""
+    import torch
+    from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
+    from shiftnet_tpu_torch.models import build_model, init_state
+
+    state = init_state(build_model('deblur_plus'), seed=0)
+    clip = _clip(ONE_LEN + 2 * HALO, seed=1)
+    launches = {}
+    for name, overrides, expected, timed in (
+            ('fused_chw', None, MAIN_PATH_LAUNCHES, 3),  # the default
+            ('fused_tfr', CONFIG_OVERRIDES['fused_tfr'], TFR_PATH_LAUNCHES,
+             1)):
+        ev = Evaluator('deblur_plus', state, device='cuda',
+                       overrides=overrides, result_path=logs)
+        if name == 'fused_chw' and not ev.model.cfg.fused_chw:
+            raise AssertionError('the default Evaluator is not fused_chw')
+        launches[name] = _drive(ev, clip, expected, name, card, timed)
+        del ev
+        torch.cuda.empty_cache()
+
+    # The whole model on the kernels against the all-plain model.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     small = _clip(2 * HALO + 1, seed=2)
     res = {}
     for dtn in ('float32', 'bfloat16'):
-        outs = []
-        for fused in (True, False):
+        outs = {}
+        for name, overrides in CONFIG_OVERRIDES.items():
             ev = Evaluator('deblur_plus', state, device='cuda',
-                           bf16=dtn == 'bfloat16',
-                           overrides={'fused_tfr': fused},
+                           bf16=dtn == 'bfloat16', overrides=overrides,
                            result_path=logs)
-            outs.append(torch.from_numpy(ev.forward_window(small)))
+            outs[name] = torch.from_numpy(ev.forward_window(small))
             del ev
             torch.cuda.empty_cache()
-        res[dtn] = _norm_err(*outs)[0]
-    print(f'slice: kernel TFR vs plain TFR, 5x{H}x{W}: float32 err '
-          f'{res["float32"]:.3e} (tol {SLICE_TOL_F32:.0e}), bfloat16 err '
-          f'{res["bfloat16"]:.3e}', flush=True)
-    if not res['float32'] <= SLICE_TOL_F32:
-        raise AssertionError('kernel slice disagrees with the plain slice')
+        for name in ('fused_chw', 'fused_tfr'):
+            res[name, dtn] = _norm_err(outs[name], outs['plain'])[0]
+    for name in ('fused_chw', 'fused_tfr'):
+        print(f'slice: {name} model vs all-plain model, 5x{H}x{W}: float32 '
+              f'err {res[name, "float32"]:.3e} (tol {SLICE_TOL_F32:.0e}), '
+              f'bfloat16 err {res[name, "bfloat16"]:.3e}', flush=True)
+        if not res[name, 'float32'] <= SLICE_TOL_F32:
+            raise AssertionError(f'the {name} model disagrees with the '
+                                 'plain model')
     return launches
 
 
@@ -307,10 +521,13 @@ def main():
         launches = slice_phase(card, logs)
     kernels = []
     for name, (src, repl, also) in KERNELS.items():
+        r = rec[name]
         entry = {'name': name, 'route': 'cuda', 'source': src,
-                 'replaces': repl, 'launches': launches[name],
-                 'max_abs_err': rec[name]['max_abs_err'],
-                 'ms': rec[name]['ms'], 'plain_ms': rec[name]['plain_ms']}
+                 'replaces': repl, 'launches': launches['fused_chw'][name],
+                 'launches_fused_tfr': launches['fused_tfr'][name],
+                 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                 'bound_by': r['bound_by'], 'library_ms': r['library_ms']}
         if also:
             entry['also_replaces'] = also
         kernels.append(entry)

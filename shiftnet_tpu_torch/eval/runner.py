@@ -18,20 +18,51 @@ from typing import Any
 import numpy as np
 import torch
 
-from shiftnet_tpu.data.video_dataset import _imread
-from shiftnet_tpu.eval.registry import score_pair
-from shiftnet_tpu.eval.window import half_slices, mod_crop, plan_deblur_chunks
-from shiftnet_tpu_torch.models import CONFIGS, build_model
+from shiftnet_tpu_torch.eval.metrics import score_pair
+from shiftnet_tpu_torch.eval.window import (half_slices, mod_crop,
+                                            plan_deblur_chunks)
+from shiftnet_tpu_torch.models import CONFIGS, GShiftNetConfig, build_model
 
 HALO = 2  # input frames on each side of a window's outputs (test_deblur.py)
 # The inference-local protocol the published numbers use (skimage PSNR and
 # the scipy-gaussian SSIM, ``test_deblur.py:25-49``).
 METRICS = {'psnr': {'type': 'psnr'}, 'ssim': {'type': 'ssim'}}
 # Peak device memory of a deblur_plus forward per input pixel (T * H * W),
-# by compute type, with ~10 % headroom: the measured peak of a 40x720x1280
-# bf16 window on an H100 80GB HBM3 (700 W) is 39.9 GB, 1082 B/px (PERF.md,
-# "H100 port"); the float32 figure doubles it.
-WINDOW_BYTES_PER_PX = {torch.bfloat16: 1200, torch.float32: 2400}
+# by configuration and compute type, with ~10 % headroom over the peak of a
+# 40x720x1280 bf16 window measured on an H100 80GB HBM3 (700 W) by
+# chip_smoke.py (PERF.md, "H100 port"): fused_chw 16.98 GB, 461 B/px;
+# fused_tfr 39.9 GB, 1082 B/px.  The plain configuration runs the same plain
+# Encoder2 as fused_tfr, where that peak is, and shares its figure; the
+# float32 figures double the bf16 ones.
+WINDOW_BYTES_PER_PX = {
+    ('fused_chw', torch.bfloat16): 510, ('fused_chw', torch.float32): 1020,
+    ('fused_tfr', torch.bfloat16): 1200, ('fused_tfr', torch.float32): 2400,
+    ('plain', torch.bfloat16): 1200, ('plain', torch.float32): 2400,
+}
+
+
+def configuration(cfg: GShiftNetConfig) -> str:
+    """Which kernels a model runs: ``fused_chw`` (all of them),
+    ``fused_tfr`` (the TFR U-Nets') or ``plain`` (none)."""
+    if cfg.fused_chw:
+        return 'fused_chw'
+    return 'fused_tfr' if cfg.fused_tfr else 'plain'
+
+
+# The model overrides that select each configuration.
+CONFIG_OVERRIDES = {'fused_chw': {'fused_chw': True},
+                    'fused_tfr': {'fused_chw': False, 'fused_tfr': True},
+                    'plain': {'fused_chw': False, 'fused_tfr': False}}
+
+
+def _imread(path: str) -> np.ndarray:
+    """An RGB uint8 frame (the port's copy of
+    ``shiftnet_tpu/data/video_dataset.py:_imread``)."""
+    import imageio.v2 as imageio
+    img = imageio.imread(path)
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    return img[..., :3]
 
 
 class EvalLogger:
@@ -51,9 +82,9 @@ class Evaluator:
     """deblur evaluation on ``device`` with a torch-keyed ``state``
     (``tools.params_io.load_state`` or ``models.init_state``).
 
-    Deblur computes in bf16 with float32 parameters by default, as the JAX
-    Evaluator does; the TFR U-Nets run on the CUDA kernels (``fused_tfr``,
-    the plain versions on the CPU)."""
+    Deblur computes in bf16 with float32 parameters by default, and the
+    model runs on the CUDA kernels (``fused_chw``; the plain versions on the
+    CPU), as the JAX Evaluator does (``shiftnet_tpu/eval/runner.py:74``)."""
 
     def __init__(self, variant: str, state: dict[str, torch.Tensor], *,
                  device: str | torch.device, result_path: str = 'results',
@@ -62,13 +93,15 @@ class Evaluator:
         if bf16 is None:
             bf16 = not CONFIGS[variant].noise_map
         overrides = dict(overrides or {})
-        overrides.setdefault('fused_tfr', True)
+        overrides.setdefault('fused_chw', True)
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if bf16 else torch.float32
         self.model = build_model(variant, past_frames=HALO,
                                  future_frames=HALO, **overrides)
         self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval()
+        self.bytes_per_px = WINDOW_BYTES_PER_PX[
+            (configuration(self.model.cfg), self.dtype)]
         self.save_images = save_images
         self.result_path = result_path
         stamp = time.strftime('%Y-%m-%d %H:%M:%S')
@@ -87,7 +120,7 @@ class Evaluator:
         """'full' when the window's estimated peak fits the budget, else
         'half' (two half-height tiles, ``eval.window.half_slices``)."""
         t, h, w = shape[:3]
-        need = t * h * w * WINDOW_BYTES_PER_PX[self.dtype]
+        need = t * h * w * self.bytes_per_px
         budget = self._budget()
         return 'full' if budget is None or need <= budget else 'half'
 
@@ -106,7 +139,7 @@ class Evaluator:
         budget = self._budget()
         self.logger.write(
             f'[plan] window {tuple(x.shape)} {self.dtype}: estimated '
-            f'{tt * hh * ww * WINDOW_BYTES_PER_PX[self.dtype] / 1e9:.2f} GB, '
+            f'{tt * hh * ww * self.bytes_per_px / 1e9:.2f} GB, '
             f'budget {"host" if budget is None else f"{budget / 1e9:.2f} GB"}'
             f' -> {plan}')
         if plan == 'full':
@@ -149,8 +182,7 @@ class Evaluator:
 
     def _score(self, out: np.ndarray, gts, video: str,
                index0: int) -> dict[str, list]:
-        """Every configured metric per frame (``shiftnet_tpu/eval/
-        registry.py``)."""
+        """Every configured metric per frame (``eval.metrics.score_pair``)."""
         scores: dict[str, list] = {name: [] for name in METRICS}
         for i, gt in enumerate(gts):
             img = np.clip(out[i], 0.0, 1.0) * 255.0

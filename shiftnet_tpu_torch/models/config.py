@@ -1,7 +1,7 @@
 """GShiftNet configuration: the four reference variants.
 
 Re-declared from ``shiftnet_tpu/models/gshift.py:29-111`` (that module
-imports flax).  The JAX-only fields (``fused_chw``, ``stage2_chunk``,
+imports flax).  The fields the port does not run yet (``stage2_chunk``,
 ``conv_concat``, ``time_axis``) are not declared.
 """
 from __future__ import annotations
@@ -38,6 +38,9 @@ class GShiftNetConfig:
     past_frames: int = 1            # num_fb (2 at deblur test time)
     future_frames: int = 1          # num_ff
     fused_tfr: bool = False         # TFR U-Nets on the CUDA kernels (ops/chw)
+    fused_chw: bool = False         # the whole network on the CUDA kernels
+    # (ops/chw, ops/naf_chw): every CAB, standalone conv, SkipUpSample and
+    # shift block; implies fused_tfr
 
     @property
     def noise_map(self) -> bool:

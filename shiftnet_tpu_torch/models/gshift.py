@@ -5,6 +5,12 @@ branch, ``GShiftNet``, ``build_model``).  Input is one clip ``(T, C_in, H,
 W)``; the forward predicts the ``T - past - future`` center frames with a
 global residual to the input (reference ``gshift_deblur1.py:783-791``).
 
+With ``cfg.fused_chw`` every module of the forward that the JAX package's
+``_forward_chw`` (``gshift.py:407-500``) runs on a Pallas kernel runs on a
+CUDA kernel here (``ops/chw``, ``ops/naf_chw``), or on its plain version for
+CPU tensors; the concats, residual adds and the pixel shuffle stay plain
+torch, as they are XLA ops there.
+
 Not ported yet: the small variants' shift-block encoder
 (``encoder2_shift_encoder``) and add-fuse (``final_fuse_concat=False``), and
 the denoise variants' noise map and Shift_CABs; building those raises.
@@ -18,10 +24,10 @@ import torch
 from torch import nn
 
 from shiftnet_tpu_torch.models.config import CONFIGS, GShiftNetConfig
-from shiftnet_tpu_torch.models.layers import (CAB, Conv2d, DownSample,
-                                              EncoderShiftBlock, PReLU,
-                                              PixelShufflePack, SkipUpSample,
-                                              TFRUNet)
+from shiftnet_tpu_torch.models.layers import (CAB, Conv2d, ConvPReLU,
+                                              DownSample, EncoderShiftBlock,
+                                              PReLU, PixelShufflePack,
+                                              SkipUpSample, TFRUNet)
 
 
 def _check_ported(cfg: GShiftNetConfig) -> None:
@@ -38,50 +44,68 @@ def _check_ported(cfg: GShiftNetConfig) -> None:
 
 class Encoder2(nn.Module):
     """Temporal-fusion U-Net (``gshift_deblur1.py:548-642``), big variant:
-    plain-CAB encoder over 3 levels, shift blocks in the decoder."""
+    plain-CAB encoder over 3 levels, shift blocks in the decoder.
+
+    On the fused path the CABs of the level chains write over their input,
+    which is dead there: each chain starts on the fresh output of a conv.
+    ``concat``'s output is read by both ``skip_conv`` and ``down01``, and
+    enc11 / enc22 by ``skip_attn1`` / ``skip_attn2`` and the next down
+    conv, so the CABs that read those write fresh outputs."""
 
     def __init__(self, cfg: GShiftNetConfig):
         super().__init__()
         nf, nf0, red = cfg.n_feats2, cfg.n_feats0, cfg.ca_reduction
+        fused = cfg.fused_chw
         shift_kw = dict(rounds=cfg.shift_rounds, reduction=red,
                         boundary_patch=cfg.boundary_patch,
                         mid_ca=cfg.cab_mid_ca, last_bias=cfg.cab_last_bias,
-                        repconv_depthwise=cfg.repconv_depthwise)
+                        repconv_depthwise=cfg.repconv_depthwise, fused=fused)
         dp = cfg.downsample_prelu
-        self.concat = CAB(nf0, 3, red)
-        self.down01 = nn.Sequential(
-            Conv2d(nf0, nf, 2, stride=2, padding=0), PReLU())
-        self.encoder_level1 = CAB(nf, 3, red)
-        self.encoder_level1_1 = CAB(nf, 3, red)
-        self.down12 = DownSample(nf, nf, dp)
-        self.encoder_level2 = CAB(nf, 3, red)
-        self.encoder_level2_1 = CAB(nf, 3, red)
-        self.down23 = DownSample(nf, nf, dp)
-        self.encoder_level3 = CAB(nf, 3, red)
-        self.encoder_level3_1 = CAB(nf, 3, red)
+
+        def cab(c):
+            return CAB(c, 3, red, fused=fused)
+
+        self.concat = cab(nf0)
+        self.down01 = ConvPReLU(
+            Conv2d(nf0, nf, 2, stride=2, padding=0, fused=fused))
+        self.encoder_level1 = cab(nf)
+        self.encoder_level1_1 = cab(nf)
+        self.down12 = DownSample(nf, nf, dp, fused=fused)
+        self.encoder_level2 = cab(nf)
+        self.encoder_level2_1 = cab(nf)
+        self.down23 = DownSample(nf, nf, dp, fused=fused)
+        self.encoder_level3 = cab(nf)
+        self.encoder_level3_1 = cab(nf)
         self.decoder_level3 = EncoderShiftBlock(nf, **shift_kw)
         self.decoder_level3_1 = EncoderShiftBlock(nf, **shift_kw)
-        self.skip_attn2 = CAB(nf, 3, red)
-        self.up32 = SkipUpSample(nf, nf)
+        self.skip_attn2 = cab(nf)
+        self.up32 = SkipUpSample(nf, nf, fused=fused)
         self.decoder_level2 = EncoderShiftBlock(nf, **shift_kw)
         self.decoder_level2_1 = EncoderShiftBlock(nf, **shift_kw)
-        self.skip_attn1 = CAB(nf, 3, red)
-        self.up21 = SkipUpSample(nf, nf)
+        self.skip_attn1 = cab(nf)
+        self.up21 = SkipUpSample(nf, nf, fused=fused)
         self.decoder_level1 = EncoderShiftBlock(nf, **shift_kw)
         self.decoder_level1_1 = EncoderShiftBlock(nf, **shift_kw)
         self.decoder_level1_2 = EncoderShiftBlock(nf, **shift_kw)
-        self.upsample0 = PixelShufflePack(nf, nf0, scale=2, upsample_kernel=3)
-        self.skip_conv = CAB(nf0, 3, red)
-        self.conv_hr0 = Conv2d(2 * nf0, nf0, 3, bias=True)
-        self.out_conv = CAB(nf0, 3, red)
+        self.upsample0 = PixelShufflePack(nf, nf0, scale=2, upsample_kernel=3,
+                                          fused=fused)
+        self.skip_conv = cab(nf0)
+        self.conv_hr0 = Conv2d(2 * nf0, nf0, 3, bias=True, fused=fused)
+        self.out_conv = cab(nf0)
 
     def forward(self, x):
         x = self.concat(x)
         skip = self.skip_conv(x)  # the full-res shortcut is only read here
         x = self.down01(x)
-        enc11 = self.encoder_level1_1(self.encoder_level1(x))
-        enc22 = self.encoder_level2_1(self.encoder_level2(self.down12(enc11)))
-        y = self.encoder_level3_1(self.encoder_level3(self.down23(enc22)))
+        enc11 = self.encoder_level1_1(self.encoder_level1(x, inplace=True),
+                                      inplace=True)
+        del x
+        enc22 = self.encoder_level2_1(
+            self.encoder_level2(self.down12(enc11), inplace=True),
+            inplace=True)
+        y = self.encoder_level3_1(
+            self.encoder_level3(self.down23(enc22), inplace=True),
+            inplace=True)
         y = self.decoder_level3_1(self.decoder_level3(y))
         y = self.up32(y, self.skip_attn2(enc22))
         del enc22
@@ -94,7 +118,7 @@ class Encoder2(nn.Module):
         del y
         out = self.conv_hr0(torch.cat([up, skip], dim=1))
         del up, skip
-        return self.out_conv(out)
+        return self.out_conv(out, inplace=True)
 
 
 class GShiftNet(nn.Module):
@@ -107,23 +131,25 @@ class GShiftNet(nn.Module):
         _check_ported(cfg)
         self.cfg = cfg
         nf0 = cfg.n_feats0
+        fused = cfg.fused_chw
         tfr_kw = dict(kernel_size=3, reduction=cfg.ca_reduction,
                       scale_unetfeats=cfg.tfr_scale,
                       downsample_prelu=cfg.downsample_prelu,
-                      fused=cfg.fused_tfr)
+                      fused=cfg.fused_tfr or fused)
         self.feat_extract = nn.Sequential(
-            Conv2d(cfg.in_channels, nf0, 3, bias=True),
-            CAB(nf0, 3, cfg.ca_reduction))
+            Conv2d(cfg.in_channels, nf0, 3, bias=True, fused=fused),
+            CAB(nf0, 3, cfg.ca_reduction, fused=fused))
         for i in range(cfg.num_orbs):
             self.add_module(f'orb{i + 1}', TFRUNet(nf0, **tfr_kw))
-        self.conv_trans = Conv2d(nf0, nf0, 3, bias=True)
+        self.conv_trans = Conv2d(nf0, nf0, 3, bias=True, fused=fused)
         self.stage1 = Encoder2(cfg)
-        self.rconcat = Conv2d(3 * nf0, nf0, 3, bias=cfg.rconcat_bias)
+        self.rconcat = Conv2d(3 * nf0, nf0, 3, bias=cfg.rconcat_bias,
+                              fused=fused)
         if cfg.rconcat_act:
             self.lrelu = PReLU()
         for i in range(cfg.num_orbs):
             self.add_module(f'rorb{i + 1}', TFRUNet(nf0, **tfr_kw))
-        self.conv_last = Conv2d(nf0, 3, cfg.conv_last_ks)
+        self.conv_last = Conv2d(nf0, 3, cfg.conv_last_ks, fused=fused)
 
     def _orbs(self, prefix: str, y):
         for i in range(self.cfg.num_orbs):

@@ -10,6 +10,10 @@ Parameters are float32; each module computes in its input's type (bf16 at
 inference), casting weights on use as flax's ``dtype=`` does.  Parameters are
 created zero-filled: ``gshift.init_state`` or a checkpoint fills them, so
 building a model touches no global RNG state.
+
+Modules built with ``fused=True`` (the ``fused_chw`` configuration) run on
+the CUDA kernels of ``ops/chw`` and ``ops/naf_chw``, or on their plain
+versions for CPU tensors; the others are the plain path.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from shiftnet_tpu_torch.ops import chw
+from shiftnet_tpu_torch.ops import chw, naf_chw
 from shiftnet_tpu_torch.ops.norm import layer_norm_2d
 from shiftnet_tpu_torch.ops.resize import bilinear_up2x, pixel_shuffle
 from shiftnet_tpu_torch.ops.shift import gsts
@@ -25,20 +29,30 @@ from shiftnet_tpu_torch.ops.shift import gsts
 
 class Conv2d(nn.Module):
     """``nn.Conv2d`` with torch-style padding (default k // 2) that computes
-    in the input's type.  Grouped convs stay grouped."""
+    in the input's type.  Grouped convs stay grouped.  With ``fused`` it
+    runs on ``ops.chw.conv``, the bias rounded to the compute type and added
+    in float32, as the JAX fused path does."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, *,
                  stride: int = 1, padding: int | None = None,
-                 bias: bool = False, groups: int = 1):
+                 bias: bool = False, groups: int = 1, fused: bool = False):
         super().__init__()
         k = kernel_size
         self.stride = stride
         self.padding = k // 2 if padding is None else padding
         self.groups = groups
+        self.fused = fused
+        if fused and (groups != 1
+                      or self.padding != chw.conv_pad(k, stride)):
+            raise ValueError(f'Conv2d: no kernel for k={k} stride={stride} '
+                             f'padding={self.padding} groups={groups}')
         self.weight = nn.Parameter(torch.zeros(c_out, c_in // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(c_out)) if bias else None
 
     def forward(self, x):
+        if self.fused:
+            b = None if self.bias is None else self.bias.to(x.dtype).float()
+            return chw.conv(x, self.weight.to(x.dtype), b, None, self.stride)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
                         self.padding, groups=self.groups)
@@ -53,6 +67,22 @@ class PReLU(nn.Module):
 
     def forward(self, x):
         return chw.prelu(x, self.weight)
+
+
+class ConvPReLU(nn.Sequential):
+    """``Conv2d`` then ``PReLU`` (Encoder2's ``down01``).  With the conv's
+    ``fused`` it is one ``ops.chw.conv`` launch that applies the slope."""
+
+    def __init__(self, conv: Conv2d):
+        super().__init__(conv, PReLU())
+
+    def forward(self, x):
+        conv, act = self
+        if not conv.fused:
+            return act(conv(x))
+        b = None if conv.bias is None else conv.bias.to(x.dtype).float()
+        return chw.conv(x, conv.weight.to(x.dtype), b,
+                        act.weight.to(x.dtype).float(), conv.stride)
 
 
 class LayerNorm2d(nn.Module):
@@ -130,17 +160,24 @@ class RepConv2(nn.Module):
 
 class CAB(nn.Module):
     """Plain channel-attention block (``gshift_deblur1.py:141-156``):
-    conv -> PReLU -> conv -> CALayer, residual."""
+    conv -> PReLU -> conv -> CALayer, residual.  With ``fused`` it runs on
+    ``ops.chw.cab``."""
 
     def __init__(self, n_feat: int, kernel_size: int = 3, reduction: int = 4,
-                 bias: bool = False):
+                 bias: bool = False, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.body = nn.Sequential(
             Conv2d(n_feat, n_feat, kernel_size, bias=bias), PReLU(),
             Conv2d(n_feat, n_feat, kernel_size, bias=bias))
         self.CA = CALayer(n_feat, reduction, bias=bias)
 
-    def forward(self, x):
+    def forward(self, x, inplace: bool = False):
+        """``inplace``: the fused path writes the result over x, for callers
+        that know x is dead; the plain path ignores it."""
+        if self.fused:
+            return chw.cab(dict(self.named_parameters()), '', x,
+                           inplace=inplace)
         return self.CA(self.body(x)) + x
 
 
@@ -194,9 +231,11 @@ class DownSample(nn.Module):
     """Stride-2 3x3 downsample (``gshift_deblur1.py:330-340``); the denoise
     variants use bias-free + PReLU."""
 
-    def __init__(self, c_in: int, c_out: int, with_prelu: bool = False):
+    def __init__(self, c_in: int, c_out: int, with_prelu: bool = False,
+                 fused: bool = False):
         super().__init__()
         self.with_prelu = with_prelu
+        self.fused = fused
         if with_prelu:
             self.down = nn.Sequential(Conv2d(c_in, c_out, 3, stride=2),
                                       PReLU())
@@ -204,6 +243,9 @@ class DownSample(nn.Module):
             self.down = Conv2d(c_in, c_out, 3, stride=2, bias=True)
 
     def forward(self, x):
+        if self.fused:
+            return chw.down(dict(self.named_parameters()), '', x,
+                            with_prelu=self.with_prelu)
         return self.down(x)
 
 
@@ -215,25 +257,30 @@ class Upsample2x(nn.Module):
 
 
 class SkipUpSample(nn.Module):
-    """Bilinear 2x + 1x1 conv + skip add (``gshift_deblur1.py:341-351``)."""
+    """Bilinear 2x + 1x1 conv + skip add (``gshift_deblur1.py:341-351``).
+    With ``fused`` it runs on ``ops.chw.up_skip``."""
 
-    def __init__(self, c_in: int, c_out: int):
+    def __init__(self, c_in: int, c_out: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.up = nn.Sequential(Upsample2x(), Conv2d(c_in, c_out, 1))
 
     def forward(self, x, skip):
+        if self.fused:
+            return chw.up_skip(x, self.up[1].weight.to(x.dtype), skip)
         return self.up(x) + skip
 
 
 class PixelShufflePack(nn.Module):
-    """Conv to C*r^2 then depth-to-space (``gshift_deblur1.py:256-278``)."""
+    """Conv to C*r^2 then depth-to-space (``gshift_deblur1.py:256-278``);
+    with ``fused`` the conv runs on ``ops.chw.conv``."""
 
     def __init__(self, c_in: int, c_out: int, scale: int = 2,
-                 upsample_kernel: int = 3):
+                 upsample_kernel: int = 3, fused: bool = False):
         super().__init__()
         self.scale = scale
         self.upsample_conv = Conv2d(c_in, c_out * scale * scale,
-                                    upsample_kernel, bias=True)
+                                    upsample_kernel, bias=True, fused=fused)
 
     def forward(self, x):
         return pixel_shuffle(self.upsample_conv(x), self.scale)
@@ -285,14 +332,19 @@ class TFRUNet(nn.Module):
 class EncoderShiftBlock(nn.Module):
     """``Encoder_shift_block`` (``gshift_deblur1.py:440-547``): ``rounds``
     iterations of GSTS (forward, then reverse, alternating) -> CAB2 -> CAB1.
-    Round r's blocks are ``encoder_level1{_r}.0`` (CAB2) and ``.1`` (CAB1)."""
+    Round r's blocks are ``encoder_level1{_r}.0`` (CAB2) and ``.1`` (CAB1).
+    With ``fused`` it runs on ``ops.naf_chw.encoder_shift_block``."""
 
     def __init__(self, n_feat: int, *, rounds: int = 8, reduction: int = 4,
                  boundary_patch: bool = True, mid_ca: bool = False,
-                 last_bias: bool = False, repconv_depthwise: bool = False):
+                 last_bias: bool = False, repconv_depthwise: bool = False,
+                 fused: bool = False):
         super().__init__()
         self.rounds = rounds
         self.boundary_patch = boundary_patch
+        self.mid_ca = mid_ca
+        self.last_bias = last_bias
+        self.fused = fused
         self.number = n_feat // 2 // 8
         add_c = 8 * self.number
         kw = dict(kernel_size=5, reduction=reduction, mid_ca=mid_ca,
@@ -303,6 +355,11 @@ class EncoderShiftBlock(nn.Module):
                 CAB2(n_feat, add_c, **kw), CAB1(n_feat, **kw)))
 
     def forward(self, x):
+        if self.fused:
+            return naf_chw.encoder_shift_block(
+                dict(self.named_parameters()), x, rounds=self.rounds,
+                boundary_patch=self.boundary_patch, mid_ca=self.mid_ca,
+                last_bias=self.last_bias)
         for r in range(self.rounds):
             y, hw = gsts(x, self.number, reverse=r % 2 == 1,
                          boundary_patch=self.boundary_patch)

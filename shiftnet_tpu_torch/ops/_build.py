@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``shiftnet_tpu_torch/csrc/`` compile with ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, writes into ``shiftnet_tpu_torch/_build/`` (git-ignored)
-and is keyed on a hash of the sources and flags, so a fresh checkout builds
+shared library with a plain C interface, loaded with ``ctypes``: one ``nvcc``
+process per source, all started together, then one link.  The build runs at
+first use, writes into ``shiftnet_tpu_torch/_build/`` (git-ignored) and is
+keyed on a hash of the sources and flags, so a fresh checkout builds
 everything on its first call and a changed source rebuilds.  A missing
 ``nvcc`` or a failed build raises; nothing falls back to the plain versions.
 """
@@ -14,13 +15,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / 'csrc'
 BUILD_DIR = PKG / '_build'
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC']
+ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
+NVCC_FLAGS = [*ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +33,13 @@ SIGNATURES = {
     'shiftnet_cab_back': [_I, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
     'shiftnet_conv': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'shiftnet_up_skip': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'shiftnet_shift_round': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    'shiftnet_naf_gate': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, ctypes.c_float, _P],
+    'shiftnet_naf_rep': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
+    'shiftnet_naf_back': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          ctypes.c_longlong, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -61,18 +70,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: every
+    source in its own ``nvcc`` process, all in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *[str(s) for s in sorted(CSRC.glob('*.cu'))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob('*.cu')):
+            obj = Path(tmp) / f'{src.stem}.o'
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for src, _, proc in jobs:  # wait for every compile, failed or not
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f'{src.name} ({proc.returncode}):\n{err}')
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        lib = Path(tmp) / 'lib.so'
+        res = subprocess.run([nvcc, *ARCH, '-shared', '-o', str(lib),
+                              *[str(obj) for _, obj, _ in jobs]],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
+                               f'{res.stderr}')
+        os.replace(lib, out)
     return out
 
 

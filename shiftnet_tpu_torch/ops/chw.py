@@ -1,5 +1,5 @@
-"""The TFR U-Net's four CUDA kernels, their plain versions, and the U-Net
-composed from them.
+"""The plain-CAB, conv and SkipUpSample CUDA kernels, their plain versions,
+and the TFR U-Net composed from them.
 
 Counterpart of ``shiftnet_tpu/ops/chw.py``.  The JAX module runs these ops
 on a packed ``ChwTensor`` layout that exists for the TPU's tiling rules; here
@@ -12,7 +12,8 @@ Dispatch, the same for every public op:
 - a CPU tensor runs the op's plain PyTorch version (``*_plain``);
 - any other device raises.
 
-``LAUNCHES`` counts kernel launches per op, so a run can show that it went
+``LAUNCHES`` counts kernel launches per op, this module's four and the
+shift-block kernels of ``ops/naf_chw``, so a run can show that it went
 through the kernels.  Conv weights come in the activation type (the caller
 casts the float32 parameters, as flax's ``dtype=`` does); PReLU slopes and
 biases stay float32, and the kernels apply them in float32.
@@ -25,7 +26,8 @@ import torch.nn.functional as F
 from shiftnet_tpu_torch.ops import _build
 from shiftnet_tpu_torch.ops.resize import bilinear_up2x
 
-LAUNCHES = {'cab_front': 0, 'cab_back': 0, 'conv': 0, 'up_skip': 0}
+LAUNCHES = {'cab_front': 0, 'cab_back': 0, 'conv': 0, 'up_skip': 0,
+            'shift_round': 0, 'naf_gate': 0, 'naf_rep': 0, 'naf_back': 0}
 
 # Shared memory a block may use on Hopper (227 KB).
 SMEM_BYTES = 232448
@@ -62,7 +64,8 @@ def _check(name: str, x: torch.Tensor, *same_type: torch.Tensor | None,
             raise TypeError(f'{name}: {t.dtype} operand with {x.dtype} input')
     for t in f32:
         if t is not None and t.dtype != torch.float32:
-            raise TypeError(f'{name}: bias and PReLU slope must be float32')
+            raise TypeError(f'{name}: weights, biases and PReLU slopes '
+                            f'must be float32')
     return _DTYPE_CODE[x.dtype]
 
 
@@ -253,17 +256,22 @@ def up_skip(x: torch.Tensor, w11: torch.Tensor,
 
 # -- the TFR U-Net on the kernels --------------------------------------------
 
+def prefix(name: str) -> str:
+    """Key prefix of a module's parameters: ``''`` names the module whose
+    own ``named_parameters()`` the dict holds."""
+    return f'{name}.' if name else ''
+
+
 def cab(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
         inplace: bool = False) -> torch.Tensor:
     """Plain CAB (``layers.CAB``) as cab_front -> ca_mlp -> cab_back.
     ``p`` holds torch-named parameters; ``name`` is the CAB's prefix."""
     dt = x.dtype
-    s, sums = cab_front(x, p[f'{name}.body.0.weight'].to(dt),
-                        p[f'{name}.body.1.weight'],
-                        p[f'{name}.body.2.weight'].to(dt))
-    ca = ca_mlp(sums, x.shape[2] * x.shape[3],
-                p[f'{name}.CA.conv_du.0.weight'],
-                p[f'{name}.CA.conv_du.2.weight'], dt)
+    k = prefix(name)
+    s, sums = cab_front(x, p[f'{k}body.0.weight'].to(dt),
+                        p[f'{k}body.1.weight'], p[f'{k}body.2.weight'].to(dt))
+    ca = ca_mlp(sums, x.shape[2] * x.shape[3], p[f'{k}CA.conv_du.0.weight'],
+                p[f'{k}CA.conv_du.2.weight'], dt)
     return cab_back(x, s, ca, inplace=inplace)
 
 
@@ -271,11 +279,12 @@ def down(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
          with_prelu: bool) -> torch.Tensor:
     """DownSample (``layers.DownSample``): stride-2 3x3 conv with bias, or
     bias-free followed by PReLU."""
+    k = prefix(name)
     if with_prelu:
-        return conv(x, p[f'{name}.down.0.weight'].to(x.dtype), None,
-                    p[f'{name}.down.1.weight'], stride=2)
-    return conv(x, p[f'{name}.down.weight'].to(x.dtype),
-                p[f'{name}.down.bias'], None, stride=2)
+        return conv(x, p[f'{k}down.0.weight'].to(x.dtype), None,
+                    p[f'{k}down.1.weight'], stride=2)
+    return conv(x, p[f'{k}down.weight'].to(x.dtype), p[f'{k}down.bias'],
+                None, stride=2)
 
 
 def tfr_unet(p: dict[str, torch.Tensor], x: torch.Tensor, *,

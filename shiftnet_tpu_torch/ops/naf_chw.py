@@ -1,0 +1,353 @@
+"""The shift-block CUDA kernels, their plain versions, and the Encoder shift
+block composed from them.
+
+Counterpart of ``shiftnet_tpu/ops/naf_chw.py``, on logical ``(T, C, H, W)``
+tensors.  An Encoder shift block is ``rounds`` x [GSTS round -> CAB2 ->
+CAB1]; each gated CAB2 / CAB1 runs as three kernels with the channel
+attention MLPs (``chw.ca_mlp``) as plain torch between them:
+
+- ``shift_round`` (kernel E, ``csrc/shift_round.cu``): the temporal
+  half-channel shift y and the 24-direction spatial shift hw of the moved
+  channels;
+- ``naf_gate`` (F, ``csrc/naf_gate.cu``): [CAB2: depthwise 3x3 over hw] ->
+  LayerNorm folded into the 1x1 expand -> RepConv2 -> SimpleGate;
+- ``naf_rep`` (G, ``csrc/naf_rep.cu``): [mid-CA scale] -> merged grouped
+  RepConv -> 1x1 expand -> SimpleGate2;
+- ``naf_back`` (H, ``csrc/naf_back.cu``): y + beta * (w7 . (s * ca) + b7).
+
+Dispatch is that of ``ops/chw``: a CUDA tensor launches the kernel or
+raises, a CPU tensor runs the plain version (``*_plain``), and each launch
+adds one to ``chw.LAUNCHES``.  The plain versions round where the XLA twin
+``shiftnet_tpu/ops/chw_xla.py:naf_cab_chw_xla`` rounds, not where the
+unfused flax CAB1/CAB2 do: the folded expand weight is cast once, hw2 and
+the expand output e are cast before their depthwise convs, the RepConv
+output r before its expand, the two SimpleGate2 factors separately, and
+the products g * cag and s * ca are taken in the compute type.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from shiftnet_tpu_torch.ops import _build
+from shiftnet_tpu_torch.ops.chw import (LAUNCHES, SMEM_BYTES, _check, _on_cuda,
+                                        _stream, ca_mlp, prefix)
+from shiftnet_tpu_torch.ops.shift import gsts
+
+LN_EPS = 1e-6
+GATE_SLACK = 8    # csrc/naf_gate.cu, kGateSlack
+BACK_PX = 128     # csrc/naf_back.cu, kBackPx: pixels per block
+TILES = ((16, 16), (8, 16), (8, 8))  # output tiles, largest first
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+# -- host-side weights ---------------------------------------------------------
+
+def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
+             mid_ca: bool = False,
+             last_bias: bool = False) -> dict[str, torch.Tensor | None]:
+    """Kernel-side weights of one CAB2 / CAB1 from its torch-named
+    parameters (prefix ``name``), the counterpart of
+    ``shiftnet_tpu/ops/naf_chw.py:prep_naf_weights`` (with
+    ``naf_params_from_tree``).
+
+    Every parameter is first rounded to the compute type, as the JAX fused
+    path's ``cast_tree`` does; the results are float32 tensors:
+
+    - ``wg`` [cin][2n]: (w0 * gamma) transposed, cast to the compute type;
+      ``c1 = w0 . gamma`` and ``c2 = w0 . beta_ln`` [2n] (LayerNorm folded
+      into the expand);
+    - ``rep`` (n, 8, 5, 5): the grouped RepConv with its 3x3 branch added to
+      the centre taps and the identity to the centre tap of each channel's
+      own input, merged in float32 and cast once (not the TPU's dense
+      block-diagonal form, ``_dense_rep``);
+    - ``dw0`` [2n][9] (RepConv2), ``dwc`` [add_c][9] (CAB2's conv1, None
+      for CAB1), ``w4`` [n][2n], ``w7`` [n][n] (input-major), ``beta`` [n]
+      and ``b7`` [n] (None without ``last_bias``).
+    """
+    k = prefix(name)
+
+    def q(key: str) -> torch.Tensor:
+        return p[k + key].detach().to(dtype).float()
+
+    off = 1 if mid_ca else 0
+    w0 = q('body.0.weight').flatten(1)  # (2n, cin)
+    n = w0.shape[0] // 2
+    gamma, beta_ln = q('norm.weight'), q('norm.bias')
+    # a copy: in float32, q() returns the parameter's own storage
+    rep = q(f'body.{3 + off}.conv_1.weight').clone()  # (n, n/groups, 5, 5)
+    if rep.shape[1] != 8:
+        raise NotImplementedError(
+            f'{name}: RepConv with {rep.shape[1]} input channels per group; '
+            'only groups of 8 are ported (the depthwise RepConv of the small '
+            'variants is not)')
+    rep[:, :, 1:4, 1:4] += q(f'body.{3 + off}.conv_2.weight')
+    o = torch.arange(n, device=rep.device)
+    rep[o, o % 8, 2, 2] += 1.0
+    return {
+        'wg': (w0 * gamma).t().to(dtype).float().contiguous(),
+        'c1': w0 @ gamma,
+        'c2': w0 @ beta_ln,
+        'dw0': q('body.1.conv_2.weight').reshape(2 * n, 9),
+        'dwc': (q('conv1.weight').flatten(1) if k + 'conv1.weight' in p
+                else None),
+        'rep': rep.to(dtype).float(),
+        'w4': q(f'body.{4 + off}.weight').flatten(1).t().contiguous(),
+        'w7': q(f'body.{7 + off}.weight').flatten(1).t().contiguous(),
+        'beta': q('beta').flatten(),
+        'b7': q(f'body.{7 + off}.bias') if last_bias else None,
+    }
+
+
+# -- E: shift_round ------------------------------------------------------------
+
+shift_round_plain = gsts
+
+
+def shift_round(x: torch.Tensor, number: int, *, reverse: bool,
+                boundary_patch: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """One GSTS round (``ops.shift.gsts``): the temporally shifted y (T, C,
+    H, W), always a fresh tensor, and hw (T, 8 * number, H, W)."""
+    if not _on_cuda(x):
+        return shift_round_plain(x, number, reverse=reverse,
+                                 boundary_patch=boundary_patch)
+    code = _check('shift_round', x)
+    t, c, h, w = x.shape
+    add_c = 8 * number
+    if number < 1 or add_c > c:
+        raise ValueError(f'shift_round: number {number} for C={c}')
+    if t * (c + add_c) > 65535:
+        raise ValueError(f'shift_round: T*(C+add_c)={t * (c + add_c)} '
+                         'exceeds the grid')
+    y = torch.empty_like(x)
+    hw = torch.empty((t, add_c, h, w), device=x.device, dtype=x.dtype)
+    lib = _build.library()
+    _build.check(lib.shiftnet_shift_round(
+        code, x.data_ptr(), y.data_ptr(), hw.data_ptr(), t, c, h, w, number,
+        int(reverse), int(boundary_patch), _stream()), 'shift_round')
+    LAUNCHES['shift_round'] += 1
+    return y, hw
+
+
+# -- F: naf_gate ---------------------------------------------------------------
+
+def naf_gate_smem(n: int, add_c: int, itemsize: int, th: int, tw: int) -> int:
+    """Shared memory of one ``naf_gate`` block (csrc/naf_gate.cu): float32
+    LN statistics of the expand region (the tile plus a 1-pixel halo), the
+    staged [y; hw2], and the larger of hw with a 2-pixel halo and e."""
+    a1 = (th + 2) * (tw + 2)
+    a2 = (th + 4) * (tw + 4)
+    return 8 * a1 + ((n + add_c) * a1 + GATE_SLACK
+                     + max(2 * n * a1, add_c * a2)) * itemsize
+
+
+def _tile(name: str, smem) -> tuple[int, int]:
+    for th, tw in TILES:
+        if smem(th, tw) <= SMEM_BYTES:
+            return th, tw
+    raise ValueError(f'{name}: does not fit in shared memory')
+
+
+def naf_gate_tile(n: int, add_c: int, itemsize: int) -> tuple[int, int]:
+    return _tile('naf_gate',
+                 lambda th, tw: naf_gate_smem(n, add_c, itemsize, th, tw))
+
+
+def naf_gate_plain(y, hw, prep):
+    dt = y.dtype
+    n = y.shape[1]
+    xin = y
+    if hw is not None:
+        add_c = hw.shape[1]
+        hw2 = F.conv2d(hw.float(), prep['dwc'].view(add_c, 1, 3, 3),
+                       padding=1, groups=add_c).to(dt)
+        xin = torch.cat([y, hw2], dim=1)
+    x32 = xin.float()
+    cin = x32.shape[1]
+    mu = x32.sum(dim=1, keepdim=True) / cin
+    var = x32.square().sum(dim=1, keepdim=True) / cin - mu * mu
+    inv = torch.rsqrt(var + LN_EPS)
+    e = torch.einsum('io,tihw->tohw', prep['wg'], x32)
+    e = (inv * e - (inv * mu) * _col(prep['c1']) + _col(prep['c2'])).to(dt)
+    e32 = e.float()
+    d = F.conv2d(e32, prep['dw0'].view(2 * n, 1, 3, 3), padding=1,
+                 groups=2 * n) + e32
+    g = (d[:, :n] * d[:, n:]).to(dt).contiguous()
+    return g, g.float().sum(dim=(2, 3))
+
+
+def naf_gate(y: torch.Tensor, hw: torch.Tensor | None,
+             prep: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """[CAB2: hw2 = dw3x3(hw)] -> LayerNorm over [y; hw2] folded into the
+    expand to 2n -> RepConv2 -> SimpleGate.  ``hw=None`` for CAB1.
+
+    y: (T, n, H, W); hw: (T, add_c, H, W).  Returns g (T, n, H, W) and its
+    float32 channel sums (T, n)."""
+    if not _on_cuda(y):
+        return naf_gate_plain(y, hw, prep)
+    wg, c1, c2, dw0, dwc = (prep[k] for k in ('wg', 'c1', 'c2', 'dw0', 'dwc'))
+    code = _check('naf_gate', y, hw, f32=(wg, c1, c2, dw0, dwc))
+    t, n, h, w = y.shape
+    add_c = 0 if hw is None else hw.shape[1]
+    if ((hw is None) != (dwc is None) or n % 8
+            or (hw is not None and hw.shape != (t, add_c, h, w))
+            or wg.shape != (n + add_c, 2 * n) or dw0.shape != (2 * n, 9)
+            or (dwc is not None and dwc.shape != (add_c, 9))):
+        raise ValueError(f'naf_gate: y {tuple(y.shape)}, hw '
+                         f'{None if hw is None else tuple(hw.shape)}, wg '
+                         f'{tuple(wg.shape)}')
+    th, tw = naf_gate_tile(n, add_c, y.element_size())
+    n_blocks = -(-h // th) * -(-w // tw)
+    g = torch.empty_like(y)
+    part = torch.empty((t, n_blocks, n), device=y.device, dtype=torch.float32)
+    lib = _build.library()
+    _build.check(lib.shiftnet_naf_gate(
+        code, y.data_ptr(), None if hw is None else hw.data_ptr(),
+        wg.data_ptr(), c1.data_ptr(), c2.data_ptr(), dw0.data_ptr(),
+        None if dwc is None else dwc.data_ptr(), g.data_ptr(), part.data_ptr(),
+        t, n, add_c, h, w, th, tw, LN_EPS, _stream()), 'naf_gate')
+    LAUNCHES['naf_gate'] += 1
+    return g, part.sum(dim=1)
+
+
+# -- G: naf_rep ----------------------------------------------------------------
+
+def naf_rep_smem(n: int, itemsize: int, th: int, tw: int) -> int:
+    """Shared memory of one ``naf_rep`` block (csrc/naf_rep.cu): g with a
+    2-pixel halo and the RepConv output r of the tile."""
+    return n * ((th + 4) * (tw + 4) + th * tw) * itemsize
+
+
+def naf_rep_tile(n: int, itemsize: int) -> tuple[int, int]:
+    return _tile('naf_rep', lambda th, tw: naf_rep_smem(n, itemsize, th, tw))
+
+
+def naf_rep_plain(g, cag, prep):
+    dt = g.dtype
+    n = g.shape[1]
+    if cag is not None:
+        g = g * cag[:, :, None, None]
+    r = F.conv2d(g.float(), prep['rep'], padding=2, groups=n // 8).to(dt)
+    e2 = torch.einsum('io,tihw->tohw', prep['w4'], r.float())
+    s = (e2[:, :n].to(dt) * torch.sigmoid(e2[:, n:]).to(dt)).contiguous()
+    return s, s.float().sum(dim=(2, 3))
+
+
+def naf_rep(g: torch.Tensor, cag: torch.Tensor | None,
+            prep: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """[g * cag] -> merged grouped RepConv -> expand n -> 2n ->
+    SimpleGate2.  ``cag``: the (T, n) mid-CALayer scale in g's type, or
+    None.  Returns s (T, n, H, W) and its float32 channel sums (T, n)."""
+    if not _on_cuda(g):
+        return naf_rep_plain(g, cag, prep)
+    rep, w4 = prep['rep'], prep['w4']
+    code = _check('naf_rep', g, cag, f32=(rep, w4))
+    t, n, h, w = g.shape
+    if (n % 8 or rep.shape != (n, 8, 5, 5) or w4.shape != (n, 2 * n)
+            or (cag is not None and cag.shape != (t, n))):
+        raise ValueError(f'naf_rep: g {tuple(g.shape)}, rep '
+                         f'{tuple(rep.shape)}, w4 {tuple(w4.shape)}')
+    th, tw = naf_rep_tile(n, g.element_size())
+    n_blocks = -(-h // th) * -(-w // tw)
+    # [group][input channel][tap][8 output channels of the group]
+    rep_k = rep.view(n // 8, 8, 8, 25).permute(0, 2, 3, 1).contiguous()
+    s = torch.empty_like(g)
+    part = torch.empty((t, n_blocks, n), device=g.device, dtype=torch.float32)
+    lib = _build.library()
+    _build.check(lib.shiftnet_naf_rep(
+        code, g.data_ptr(), None if cag is None else cag.data_ptr(),
+        rep_k.data_ptr(), w4.data_ptr(), s.data_ptr(), part.data_ptr(), t, n,
+        h, w, th, tw, _stream()), 'naf_rep')
+    LAUNCHES['naf_rep'] += 1
+    return s, part.sum(dim=1)
+
+
+# -- H: naf_back ---------------------------------------------------------------
+
+def naf_back_plain(y, s, ca, prep, inplace=False):
+    sc = (s * ca[:, :, None, None]).float()
+    y7 = torch.einsum('io,tihw->tohw', prep['w7'], sc)
+    if prep['b7'] is not None:
+        y7 = y7 + _col(prep['b7'])
+    out = (y.float() + y7 * _col(prep['beta'])).to(y.dtype)
+    return y.copy_(out) if inplace else out.contiguous()
+
+
+def naf_back(y: torch.Tensor, s: torch.Tensor, ca: torch.Tensor, prep: dict,
+             *, inplace: bool = False) -> torch.Tensor:
+    """out = y + beta * (w7 . (s * ca) + b7).  ``ca``: (T, n) in y's type.
+    ``inplace`` writes over y: only for callers that know y is dead."""
+    if not _on_cuda(y):
+        return naf_back_plain(y, s, ca, prep, inplace)
+    w7, beta, b7 = prep['w7'], prep['beta'], prep['b7']
+    code = _check('naf_back', y, s, ca, f32=(w7, beta, b7))
+    t, n, h, w = y.shape
+    if (n % 8 or s.shape != y.shape or ca.shape != (t, n)
+            or w7.shape != (n, n) or beta.shape != (n,)
+            or (b7 is not None and b7.shape != (n,))):
+        raise ValueError(f'naf_back: y {tuple(y.shape)}, s {tuple(s.shape)}, '
+                         f'ca {tuple(ca.shape)}, w7 {tuple(w7.shape)}')
+    if n * BACK_PX * y.element_size() > SMEM_BYTES:
+        raise ValueError(f'naf_back: n={n} does not fit in shared memory')
+    out = y if inplace else torch.empty_like(y)
+    lib = _build.library()
+    _build.check(lib.shiftnet_naf_back(
+        code, y.data_ptr(), s.data_ptr(), ca.data_ptr(), w7.data_ptr(),
+        beta.data_ptr(), None if b7 is None else b7.data_ptr(),
+        out.data_ptr(), t, n, h * w, _stream()), 'naf_back')
+    LAUNCHES['naf_back'] += 1
+    return out
+
+
+# -- CAB2 / CAB1 and the Encoder shift block on the kernels --------------------
+
+def naf_cab(p: dict[str, torch.Tensor], name: str, y: torch.Tensor,
+            hw: torch.Tensor | None = None, *, mid_ca: bool = False,
+            last_bias: bool = False, inplace: bool = False) -> torch.Tensor:
+    """CAB2 (``hw`` given) or CAB1 (``layers.CAB2`` / ``CAB1``) as naf_gate
+    -> [ca_mlp] -> naf_rep -> ca_mlp -> naf_back, the counterpart of
+    ``shiftnet_tpu/ops/naf_chw.py:naf_cab_chw``.  ``p`` holds torch-named
+    parameters, ``name`` is the block's prefix.  ``inplace`` writes the
+    result over y."""
+    dt = y.dtype
+    k = prefix(name)
+    off = 1 if mid_ca else 0
+    n_px = y.shape[2] * y.shape[3]
+    prep = prep_naf(p, name, dt, mid_ca=mid_ca, last_bias=last_bias)
+    g, gsums = naf_gate(y, hw, prep)
+    cag = None
+    if mid_ca:
+        cag = ca_mlp(gsums, n_px, p[f'{k}body.3.conv_du.0.weight'],
+                     p[f'{k}body.3.conv_du.2.weight'], dt)
+    s, sums = naf_rep(g, cag, prep)
+    del g
+    ca = ca_mlp(sums, n_px, p[f'{k}body.{6 + off}.conv_du.0.weight'],
+                p[f'{k}body.{6 + off}.conv_du.2.weight'], dt)
+    return naf_back(y, s, ca, prep, inplace=inplace)
+
+
+def encoder_shift_block(p: dict[str, torch.Tensor], x: torch.Tensor, *,
+                        rounds: int, boundary_patch: bool,
+                        mid_ca: bool = False,
+                        last_bias: bool = False) -> torch.Tensor:
+    """``Encoder_shift_block`` (``layers.EncoderShiftBlock``) on the
+    kernels, the counterpart of ``shiftnet_tpu/ops/naf_chw.py:
+    encoder_shift_block_chw``: ``rounds`` x [shift_round -> CAB2 -> CAB1],
+    forward first, then alternating.  ``p``: the block's own
+    ``named_parameters()``.  x is never written."""
+    number = x.shape[1] // 2 // 8
+    kw = dict(mid_ca=mid_ca, last_bias=last_bias)
+    for r in range(rounds):
+        blk = 'encoder_level1' if r == 0 else f'encoder_level1_{r}'
+        y, hw = shift_round(x, number, reverse=r % 2 == 1,
+                            boundary_patch=boundary_patch)
+        # Both blocks write in place: CAB2's y is the fresh output of
+        # shift_round and CAB1's input is CAB2's output; neither is read
+        # again.
+        x = naf_cab(p, f'{blk}.0', y, hw, inplace=True, **kw)
+        del y, hw
+        x = naf_cab(p, f'{blk}.1', x, inplace=True, **kw)
+    return x

@@ -6,12 +6,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from shiftnet_tpu.tools.convert_torch import load_reference_checkpoint
 from shiftnet_tpu_torch.models.config import CONFIGS
 
 # The small variants build orb4/5 and rorb4/5 but run only orb1..3
 # (gshift_deblur2.py:718-726).
 UNUSED_SMALL_PREFIXES = ('orb4.', 'orb5.', 'rorb4.', 'rorb5.')
+
+
+def load_reference_checkpoint(path: str) -> dict[str, np.ndarray]:
+    """A reference ``.pth`` checkpoint (``{'params': state_dict}``, or
+    ``{'state_dict': ...}``, or a bare state dict) as numpy arrays; the
+    port's own copy of ``shiftnet_tpu/tools/convert_torch.py:122``."""
+    blob = torch.load(path, map_location='cpu', weights_only=True)
+    state = blob.get('params', blob.get('state_dict', blob))
+    return {k: v.numpy() for k, v in state.items()}
 
 
 def drop_unused_reference_keys(state: dict, variant: str) -> dict:

@@ -1,17 +1,21 @@
 """Where the time of one deblur_plus window goes, on the GPU.
 
-  python -m shiftnet_tpu_torch.tools.profile_forward [--plain-tfr]
+  python -m shiftnet_tpu_torch.tools.profile_forward \
+      [--config {fused_chw,fused_tfr,plain} ...]
 
-On seeded weights and a seeded 40x720x1280 bf16 window (the ``bench.py``
-protocol), runs the port's ``Evaluator.forward_window`` once to warm up,
-then:
+For each configuration given (default ``fused_chw``, the Evaluator's: every
+kernel of the port; ``fused_tfr``: the TFR U-Nets' kernels only; ``plain``:
+none), on seeded weights and a seeded 40x720x1280 bf16 window (the
+``bench.py`` protocol), runs the port's ``Evaluator.forward_window`` once to
+warm up, then:
 
 1. once with CUDA events around every stage of the model (the top-level
    modules of ``GShiftNet`` and of its ``Encoder2``), printing each stage's
    device time;
 2. once under ``torch.profiler``, printing the wall time, the device-busy
-   share of it (the union of kernel intervals), the device time of the TFR
-   kernels (``ops/chw``) against everything else, and the top kernels.
+   share of it (the union of kernel intervals), the device time of the
+   port's kernels (``ops/chw``, ``ops/naf_chw``) against everything else,
+   and the top kernels.
 
 Needs a CUDA device.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import re
+import subprocess
 import time
 from collections import defaultdict
 
@@ -27,11 +32,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from shiftnet_tpu_torch.eval.runner import Evaluator
+from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
 from shiftnet_tpu_torch.models import build_model, init_state
 
 OUR_KERNELS = ('cab_front_kernel', 'cab_back_kernel', 'conv_kernel',
-               'up_skip_kernel')
+               'up_skip_kernel', 'shift_round_kernel', 'naf_gate_kernel',
+               'naf_rep_kernel', 'naf_back_kernel')
 WINDOW = (40, 720, 1280, 3)
 TOP = 15
 
@@ -72,29 +78,19 @@ def stage_times(ev: Evaluator, clip: np.ndarray) -> dict[str, float]:
     return dict(out)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument('--plain-tfr', action='store_true',
-                    help='TFR U-Nets on the plain PyTorch ops')
-    ap.add_argument('--result_path', default='results',
-                    help='directory of the evaluator log')
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit('profile_forward: needs a CUDA device')
-
-    state = init_state(build_model('deblur_plus'), seed=0)
+def profile_config(name: str, state, clip: np.ndarray,
+                   result_path: str) -> None:
+    print(f'== {name} ==', flush=True)
     ev = Evaluator('deblur_plus', state, device='cuda',
-                   overrides={'fused_tfr': not args.plain_tfr},
-                   result_path=args.result_path)
-    clip = np.random.default_rng(1).uniform(0, 1, WINDOW).astype(np.float32)
+                   overrides=CONFIG_OVERRIDES[name], result_path=result_path)
     ev.forward_window(clip)
     torch.cuda.synchronize()
 
     stages = stage_times(ev, clip)
     total = sum(stages.values())
     print(f'stages (device ms, CUDA events; {total:.1f} ms in all):')
-    for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f'  {ms:10.1f} ms {100 * ms / total:5.1f} %  {name}')
+    for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f'  {ms:10.1f} ms {100 * ms / total:5.1f} %  {stage}')
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -121,11 +117,31 @@ def main(argv=None):
     print(f'wall {wall:.3f} s; device busy {busy_us / 1e6:.3f} s '
           f'({100 * busy_us / 1e6 / wall:.1f} % of wall, idle '
           f'{100 - 100 * busy_us / 1e6 / wall:.1f} %); kernel time '
-          f'{dev_us / 1e6:.3f} s, TFR kernels {ours_us / 1e6:.3f} s '
+          f'{dev_us / 1e6:.3f} s, port kernels {ours_us / 1e6:.3f} s '
           f'({100 * ours_us / max(dev_us, 1):.1f} %)')
-    for name, (us, n) in sorted(by_name.items(),
-                                key=lambda kv: -kv[1][0])[:TOP]:
-        print(f'{us / 1e3:12.2f} ms {n:6d}x  {name[:100]}')
+    for kname, (us, n) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][0])[:TOP]:
+        print(f'{us / 1e3:12.2f} ms {n:6d}x  {kname[:100]}', flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--config', nargs='+', choices=list(CONFIG_OVERRIDES),
+                    default=['fused_chw'],
+                    help='configurations to profile, in this order')
+    ap.add_argument('--result_path', default='results',
+                    help='directory of the evaluator log')
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_forward: needs a CUDA device')
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    state = init_state(build_model('deblur_plus'), seed=0)
+    clip = np.random.default_rng(1).uniform(0, 1, WINDOW).astype(np.float32)
+    for name in args.config:
+        profile_config(name, state, clip, args.result_path)
+        torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':

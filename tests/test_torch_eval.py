@@ -1,8 +1,10 @@
 """The port's evaluation harness: ``Evaluator.forward_window`` against the
-JAX model's forward, the deblur CLI end to end, and the port's freedom from
-JAX, on the CPU.
+JAX model's forward, the deblur CLI end to end, the port's own window and
+metric helpers against the JAX package's, and the port's freedom from JAX
+and from the JAX package, on the CPU.
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -11,11 +13,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from shiftnet_tpu.eval import metrics as jmetrics
+from shiftnet_tpu.eval import registry as jregistry
+from shiftnet_tpu.eval import window as jwindow
 from shiftnet_tpu.eval.window import half_slices
 from shiftnet_tpu.models import build_model as jax_build_model
 from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
-from shiftnet_tpu_torch.eval.runner import Evaluator
+from shiftnet_tpu_torch.eval import metrics, window
+from shiftnet_tpu_torch.eval.runner import (CONFIG_OVERRIDES, METRICS,
+                                            WINDOW_BYTES_PER_PX, Evaluator,
+                                            configuration)
 from shiftnet_tpu_torch.models import build_model, init_state
 
 REPO = Path(__file__).resolve().parents[1]
@@ -72,6 +81,17 @@ def test_forward_window_full_plan_matches_jax(tiny, tmp_path):
     assert norm_err(got, jax_fwd(x)) < 1e-4
 
 
+def test_evaluator_defaults_to_fused_chw(tiny, tmp_path):
+    state, _ = tiny
+    ev = evaluator(state, tmp_path)
+    assert ev.model.cfg.fused_chw and ev.dtype == torch.float32
+    assert ev.bytes_per_px == WINDOW_BYTES_PER_PX[('fused_chw',
+                                                   torch.float32)]
+    for name, overrides in CONFIG_OVERRIDES.items():
+        cfg = build_model('deblur_plus', **TINY, **overrides).cfg
+        assert configuration(cfg) == name
+
+
 def test_forward_window_half_plan_matches_jax_tiles(tiny, tmp_path,
                                                    monkeypatch):
     state, jax_fwd = tiny
@@ -122,10 +142,13 @@ def test_deblur_cli_logs_psnr_ssim(tmp_path):
 
 
 def test_port_imports_no_jax():
+    """Every port module and chip_smoke import with JAX, flax and the JAX
+    package all blocked, and leave no module of the JAX package loaded."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
+        "sys.modules['shiftnet_tpu'] = None\n"
         "import importlib, pkgutil\n"
         "import shiftnet_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -133,9 +156,57 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None and\n"
+        "          (k == 'shiftnet_tpu' or k.startswith('shiftnet_tpu.'))]\n"
+        "assert not loaded, loaded\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, '-c', script], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, 'PYTHONPATH': str(REPO)})
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 15
+
+
+IMPORT_OF_JAX_PACKAGE = re.compile(
+    r'^\s*(import|from)\s+shiftnet_tpu(?!_torch)\b', re.MULTILINE)
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No ``import shiftnet_tpu`` / ``from shiftnet_tpu`` (other than
+    ``shiftnet_tpu_torch``) in any source of the port or in chip_smoke."""
+    sources = sorted((REPO / 'shiftnet_tpu_torch').rglob('*.py'))
+    sources.append(REPO / 'chip_smoke.py')
+    assert len(sources) >= 20
+    found = [f'{path.relative_to(REPO)}: {m.group(0).strip()}'
+             for path in sources
+             for m in IMPORT_OF_JAX_PACKAGE.finditer(path.read_text())]
+    assert not found, found
+    assert IMPORT_OF_JAX_PACKAGE.search('from shiftnet_tpu.eval import x')
+    assert IMPORT_OF_JAX_PACKAGE.search('    import shiftnet_tpu\n')
+    assert not IMPORT_OF_JAX_PACKAGE.search('from shiftnet_tpu_torch import x')
+
+
+@pytest.mark.parametrize('n_frames,one_len', [(40, 36), (100, 36), (7, 2),
+                                              (4, 1)])
+def test_port_window_plans_match_jax(n_frames, one_len):
+    assert ([tuple(vars(c).values())
+             for c in window.plan_deblur_chunks(n_frames, one_len, 2)]
+            == [tuple(vars(c).values())
+                for c in jwindow.plan_deblur_chunks(n_frames, one_len, 2)])
+    h, w = 8 * n_frames, 12 * one_len
+    assert window.half_slices(h, w) == jwindow.half_slices(h, w)
+    img = np.random.default_rng(n_frames).integers(
+        0, 255, (3, h + 3, w + 2, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(window.mod_crop(img, 4),
+                                  jwindow.mod_crop(img, 4))
+
+
+def test_port_metrics_match_jax():
+    rng = np.random.default_rng(16)
+    gt = rng.integers(0, 255, (24, 40, 3)).astype(np.float32)
+    img = np.clip(gt + rng.normal(0, 9, gt.shape), 0, 255)
+    assert metrics.psnr(img, gt) == jmetrics.psnr(img, gt)
+    assert metrics.ssim(img, gt) == jmetrics.ssim(img, gt)
+    assert metrics.psnr(gt, gt) == float('inf')
+    assert (metrics.score_pair(img, gt, METRICS)
+            == jregistry.score_pair(img, gt, METRICS))

@@ -8,12 +8,14 @@ The file imports no JAX, so it also runs on a machine without it:
 (``--noconftest``: ``tests/conftest.py`` imports JAX.)  Tolerances are those
 of ``chip_smoke.py``: normalized max error 1e-4 in float32 with TF32 off
 (summation order only), 5e-2 in bfloat16 (single-ulp rounding flips on the
-largest outputs).
+largest outputs).  ``shift_round`` only copies, so it is held bit for bit.
 """
+import numpy as np
 import pytest
 import torch
 
-from shiftnet_tpu_torch.ops import chw
+from shiftnet_tpu_torch.models import init_state, layers
+from shiftnet_tpu_torch.ops import chw, naf_chw
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -105,3 +107,124 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                  None, 1)
     with pytest.raises(ValueError):
         chw.conv(x, torch.zeros(8, 8, 4, 4, device=cuda), None, None, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout,k,stride,bias,prelu', [
+    (3, 24, 3, 1, True, False),    # feat_extract
+    (24, 80, 2, 2, False, True),   # down01
+    (80, 80, 3, 2, True, False),   # Encoder2 down12 / down23
+    (80, 96, 3, 1, True, False),   # upsample_conv
+    (48, 24, 3, 1, True, False),   # conv_hr0
+    (72, 24, 3, 1, True, False),   # rconcat
+])
+def test_conv_encoder2_shapes_match_plain(cuda, dtype, cin, cout, k, stride,
+                                          bias, prelu):
+    g = torch.Generator().manual_seed(cin + cout)
+    x = randn(g, 2, cin, 21, 38).to(cuda, dtype)
+    wt = randn(g, cout, cin, k, k, scale=(k * k * cin) ** -0.5).to(cuda, dtype)
+    b = randn(g, cout, scale=0.1).to(cuda) if bias else None
+    a = torch.tensor([0.3], device=cuda) if prelu else None
+    assert norm_err(chw.conv(x, wt, b, a, stride),
+                    chw.conv_plain(x, wt, b, a, stride)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_up_skip_at_encoder2_width_matches_plain(cuda, dtype):
+    g = torch.Generator().manual_seed(80)
+    x = randn(g, 2, 80, 11, 20).to(cuda, dtype)
+    w11 = randn(g, 80, 80, 1, 1, scale=80 ** -0.5).to(cuda, dtype)
+    skip = randn(g, 2, 80, 22, 40).to(cuda, dtype)
+    assert norm_err(chw.up_skip(x, w11, skip),
+                    chw.up_skip_plain(x, w11, skip)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('number', [3, 5])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('patch', [False, True])
+def test_shift_round_matches_plain_bit_for_bit(cuda, dtype, number, reverse,
+                                               patch):
+    g = torch.Generator().manual_seed(number)
+    x = randn(g, 3, 16 * number, 19, 37).to(cuda, dtype)
+    kw = dict(reverse=reverse, boundary_patch=patch)
+    chw.reset_launches()
+    y, hw = naf_chw.shift_round(x, number, **kw)
+    py, phw = naf_chw.shift_round_plain(x, number, **kw)
+    assert torch.equal(y, py) and torch.equal(hw, phw)
+    assert chw.LAUNCHES['shift_round'] == 1
+
+
+def naf_params(n, cab2, opts, device, seed):
+    """Torch-named parameters of a CAB2 / CAB1 with a LayerNorm that is not
+    the identity (c2 != 0, so the halo masks matter), beta of order 1 and,
+    with ``opts``, the mid-CALayer and a nonzero last bias."""
+    kw = dict(kernel_size=5, reduction=4, mid_ca=opts, last_bias=opts)
+    mod = (layers.CAB2(n, 8 * (n // 16), **kw) if cab2
+           else layers.CAB1(n, **kw))
+    state = init_state(mod, seed)
+    rng = np.random.default_rng(seed)
+    for key, v in state.items():
+        if key.startswith('norm.') or key.endswith('.bias'):
+            state[key] = v + torch.from_numpy(
+                0.3 * rng.standard_normal(v.shape).astype(np.float32))
+        elif key == 'beta':
+            state[key] = torch.from_numpy(
+                rng.standard_normal(v.shape).astype(np.float32))
+    mod.load_state_dict(state, strict=True)
+    return {k: v.detach().to(device) for k, v in mod.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,cab2,opts', [
+    (48, True, False), (80, True, False), (80, False, False),
+    (48, False, True), (80, True, True)])  # opts: cag, b7
+@pytest.mark.parametrize('h,w', [(19, 37), (33, 20)])  # ragged edge tiles
+def test_naf_kernels_match_plain(cuda, dtype, n, cab2, opts, h, w):
+    """Each of naf_gate, naf_rep and naf_back against its plain version on
+    the plain version's inputs, then the whole block."""
+    p = naf_params(n, cab2, opts, cuda, seed=n + h)
+    prep = naf_chw.prep_naf(p, '', dtype, mid_ca=opts, last_bias=opts)
+    g = torch.Generator().manual_seed(n * h)
+    y = randn(g, 3, n, h, w).to(cuda, dtype)
+    hw = randn(g, 3, 8 * (n // 16), h, w).to(cuda, dtype) if cab2 else None
+    tol = TOL[dtype]
+    chw.reset_launches()
+    got, gsums = naf_chw.naf_gate(y, hw, prep)
+    pg, pgsums = naf_chw.naf_gate_plain(y, hw, prep)
+    assert norm_err(got, pg) < tol and norm_err(gsums, pgsums) < tol
+    cag = torch.sigmoid(pgsums / (h * w)).to(dtype) if opts else None
+    s, sums = naf_chw.naf_rep(pg, cag, prep)
+    ps, psums = naf_chw.naf_rep_plain(pg, cag, prep)
+    assert norm_err(s, ps) < tol and norm_err(sums, psums) < tol
+    ca = torch.sigmoid(psums / (h * w)).to(dtype)
+    want = naf_chw.naf_back_plain(y, ps, ca, prep)
+    assert norm_err(naf_chw.naf_back(y, ps, ca, prep), want) < tol
+    yc = y.clone()
+    out = naf_chw.naf_back(yc, ps, ca, prep, inplace=True)
+    assert out.data_ptr() == yc.data_ptr() and norm_err(out, want) < tol
+    assert [chw.LAUNCHES[k] for k in ('naf_gate', 'naf_rep', 'naf_back')] \
+        == [1, 1, 2]
+    if dtype == torch.float32:  # the block, kernels against the CPU chain
+        full = naf_chw.naf_cab(p, '', y, hw, mid_ca=opts, last_bias=opts)
+        cpu = {k: v.cpu() for k, v in p.items()}
+        ref = naf_chw.naf_cab(cpu, '', y.cpu(), None if hw is None
+                              else hw.cpu(), mid_ca=opts, last_bias=opts)
+        assert norm_err(full.cpu(), ref) < tol
+
+
+@pytest.mark.cuda
+def test_naf_kernels_reject_what_they_do_not_take(cuda):
+    p = naf_params(48, True, False, cuda, seed=0)
+    prep = naf_chw.prep_naf(p, '', torch.float32)
+    y = torch.zeros(2, 48, 8, 8, device=cuda)
+    with pytest.raises(ValueError):  # CAB2 weights without hw
+        naf_chw.naf_gate(y, None, prep)
+    with pytest.raises(TypeError):
+        naf_chw.naf_rep(y.half(), None, prep)
+    with pytest.raises(ValueError):
+        naf_chw.shift_round(y, 7, reverse=False, boundary_patch=True)

@@ -13,8 +13,10 @@ from shiftnet_tpu.models import build_model as jax_build_model
 from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
 from test_model_parity import make_value
 from shiftnet_tpu_torch.models import build_model, init_state
+from shiftnet_tpu_torch.ops import chw
 from shiftnet_tpu_torch.tools.convert import state_from_jax
 from shiftnet_tpu_torch.tools.params_io import (drop_unused_reference_keys,
+                                                load_reference_checkpoint,
                                                 load_state)
 
 CPU = jax.devices('cpu')[0]
@@ -104,6 +106,23 @@ def test_tiny_forward_matches_jax_unfused(tiny_pair, fused_tfr):
     assert norm_err(got.permute(0, 2, 3, 1).numpy(), want) < 1e-4
 
 
+def test_tiny_fused_chw_forward_matches_jax_unfused(tiny_pair):
+    """The fused_chw composition (every CAB, conv, SkipUpSample and shift
+    block through ops/chw and ops/naf_chw; their plain versions on the CPU)
+    against the JAX unfused forward, with the input left unwritten."""
+    state, _, x, want = tiny_pair
+    model = build_model('deblur_plus', fused_chw=True, **TINY)
+    model.load_state_dict(state, strict=True)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    x0 = xt.clone()
+    chw.reset_launches()
+    with torch.inference_mode():
+        got = model(xt)
+    assert set(chw.LAUNCHES.values()) == {0}  # CPU: no kernel launched
+    assert torch.equal(xt, x0)
+    assert norm_err(got.permute(0, 2, 3, 1).numpy(), want) < 1e-4
+
+
 def test_state_from_jax_round_trips_exactly(tiny_pair):
     state, params, _, _ = tiny_pair
     back = state_from_jax(jax.tree.map(np.asarray, params))
@@ -131,6 +150,16 @@ def test_load_state_drops_unused_reference_pth_keys(tmp_path):
     loaded = load_state('deblur_plus', str(path))
     assert set(loaded) == set(state)
     build_model('deblur_plus').load_state_dict(loaded, strict=True)
+
+
+@pytest.mark.parametrize('wrap', ['params', 'state_dict', None])
+def test_load_reference_checkpoint_unwraps(tmp_path, wrap):
+    state = {'a.weight': torch.arange(6.0).reshape(2, 3)}
+    path = tmp_path / 'net.pth'
+    torch.save(state if wrap is None else {wrap: state}, path)
+    got = load_reference_checkpoint(str(path))
+    assert set(got) == {'a.weight'}
+    np.testing.assert_array_equal(got['a.weight'], state['a.weight'].numpy())
 
 
 def test_init_state_is_seeded_and_order_free():

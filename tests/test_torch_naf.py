@@ -1,0 +1,213 @@
+"""The port's shift-block ops (``shiftnet_tpu_torch/ops/naf_chw.py``) against
+the JAX package on the CPU.
+
+On the CPU each op runs its plain PyTorch version.  ``shift_round_plain``
+is held bit for bit against the JAX shifts (``shiftnet_tpu/ops/shift.py``).
+``naf_cab`` (CAB2 and CAB1 as gate -> rep -> back) is held in float32
+against the XLA twin of the Pallas kernels (``chw_xla.naf_cab_chw_xla``,
+normalized max error <= 1e-5) and against the unfused flax CAB2 / CAB1
+(<= 1e-4: they round at other points, which float32 hides), on a ragged
+frame with signal at every border and a LayerNorm whose bias is not zero:
+LayerNorm of a zero pixel is then not zero, so a missing halo mask shows.
+The CUDA kernels are held against the plain versions on the card
+(``tests/test_torch_kernels.py``, ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shiftnet_tpu.models import layers as jl
+from shiftnet_tpu.ops import chw as jchw
+from shiftnet_tpu.ops import chw_xla
+from shiftnet_tpu.ops import naf_chw as jnaf
+from shiftnet_tpu.ops import shift as jshift
+from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
+from shiftnet_tpu_torch.models import init_state, layers
+from shiftnet_tpu_torch.ops import chw, naf_chw
+
+CPU = jax.devices('cpu')[0]
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    prev = jax.config.jax_default_device
+    jax.config.update('jax_default_device', CPU)
+    yield
+    jax.config.update('jax_default_device', prev)
+
+
+def norm_err(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.max(np.abs(a - b)) / np.std(b)
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def to_nchw(x):
+    return np.transpose(np.asarray(x), (0, 3, 1, 2))
+
+
+def to_nhwc(x):
+    return np.transpose(np.asarray(x), (0, 2, 3, 1))
+
+
+@pytest.mark.parametrize('number', [3, 5])  # C = 48 (1 channel per group), 80
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('patch', [False, True])
+def test_shift_round_plain_is_bit_exact(number, reverse, patch):
+    c, add_c = 16 * number, 8 * number
+    x = rand((4, c, 19, 21), number)
+    chw.reset_launches()
+    y, hw = naf_chw.shift_round(torch.from_numpy(x), number,
+                                reverse=reverse, boundary_patch=patch)
+    assert chw.LAUNCHES['shift_round'] == 0  # CPU tensors: the plain version
+    jy = jshift.temporal_channel_shift(jnp.asarray(to_nhwc(x)),
+                                       reverse=reverse, boundary_patch=patch)
+    jhw = jshift.grouped_spatial_shift(
+        jy[..., -add_c:] if reverse else jy[..., :add_c], number)
+    np.testing.assert_array_equal(y.numpy(), to_nchw(jy))
+    np.testing.assert_array_equal(hw.numpy(), to_nchw(jhw))
+
+
+def naf_module(n, cab2, mid_ca, last_bias, seed):
+    """A port CAB2 / CAB1 with seeded weights whose LayerNorm is not the
+    identity, beta is O(1) and the last bias (if any) is not zero."""
+    kw = dict(kernel_size=5, reduction=4, mid_ca=mid_ca, last_bias=last_bias)
+    add_c = 8 * (n // 16)
+    mod = layers.CAB2(n, add_c, **kw) if cab2 else layers.CAB1(n, **kw)
+    state = init_state(mod, seed)
+    rng = np.random.default_rng(seed)
+    for key, v in state.items():
+        if key.startswith('norm.') or key.endswith('.bias'):
+            state[key] = v + torch.from_numpy(
+                0.3 * rng.standard_normal(v.shape).astype(np.float32))
+        elif key == 'beta':
+            state[key] = torch.from_numpy(
+                rng.standard_normal(v.shape).astype(np.float32))
+    mod.load_state_dict(state, strict=True)
+    fmod = (jl.CAB2(n, add_c, **kw) if cab2 else jl.CAB1(n, **kw))
+    return mod, fmod, state, add_c
+
+
+@pytest.mark.parametrize('n,cab2,opts', [
+    (48, True, False), (48, False, False), (80, True, False),
+    (80, False, False),
+    (48, True, True), (80, False, True),  # mid_ca and last_bias on
+])
+def test_naf_cab_matches_xla_twin_and_flax(n, cab2, opts):
+    t, h, w = 2, 19, 37  # ragged: no tile or row stride divides it
+    mod, fmod, state, add_c = naf_module(n, cab2, opts, opts, seed=n + cab2)
+    y = rand((t, n, h, w), 1)
+    hw = rand((t, add_c, h, w), 2) if cab2 else None
+    yt = torch.from_numpy(y)
+    with torch.no_grad():
+        got = naf_chw.naf_cab(
+            dict(mod.named_parameters()), '', yt,
+            None if hw is None else torch.from_numpy(hw), mid_ca=opts,
+            last_bias=opts).numpy()
+    np.testing.assert_array_equal(yt.numpy(), y)  # not in place by default
+
+    yn = jnp.asarray(to_nhwc(y))
+    args = (yn,) if hw is None else (yn, jnp.asarray(to_nhwc(hw)))
+    tpl = jax.eval_shape(
+        lambda: fmod.init(jax.random.PRNGKey(0), *args))['params']
+    params = torch_state_to_flax({k: v.numpy() for k, v in state.items()},
+                                 tpl)
+    naf = jnaf.naf_params_from_tree(params, mid_ca=opts, last_bias=opts,
+                                    add_c=add_c if cab2 else 0)
+
+    @jax.jit
+    def twin(naf, *a):
+        out = chw_xla.naf_cab_chw_xla(
+            jchw.from_nhwc(a[0], padr=4, pf=1),
+            jchw.from_nhwc(a[1], padr=4, pf=1) if cab2 else None, naf,
+            groups=n // 8, mid_ca=opts, use_last_bias=opts)
+        return jchw.to_nhwc(out)
+
+    assert norm_err(got, to_nchw(twin(naf, *args))) < 1e-5
+    flax_out = jax.jit(fmod.apply)({'params': params}, *args)
+    assert norm_err(got, to_nchw(flax_out)) < 1e-4
+    with torch.no_grad():  # the port's own unfused module
+        layer_out = (mod(yt, torch.from_numpy(hw)) if cab2 else mod(yt))
+    assert norm_err(layer_out.numpy(), to_nchw(flax_out)) < 1e-4
+
+
+def test_prep_naf_matches_prep_naf_weights():
+    n, add_c = 48, 24
+    mod, fmod, state, _ = naf_module(n, True, False, False, seed=5)
+    prep = naf_chw.prep_naf(dict(mod.named_parameters()), '', torch.float32)
+    y = jnp.zeros((1, 4, 4, n))
+    tpl = jax.eval_shape(lambda: fmod.init(
+        jax.random.PRNGKey(0), y, jnp.zeros((1, 4, 4, add_c))))['params']
+    params = torch_state_to_flax({k: v.numpy() for k, v in state.items()},
+                                 tpl)
+    naf = jnaf.naf_params_from_tree(params, add_c=add_c)
+    hcb = 32  # add_c padded to a multiple of 16
+    want = jnaf.prep_naf_weights(naf, n, add_c, n // 8, jnp.float32, n, hcb)
+    half = n // 2
+    wg = prep['wg'].t().numpy()  # (2n, cin)
+    for k in range(2):  # the TPU kernel's two SimpleGate chunks
+        rows = np.r_[k * half:(k + 1) * half, n + k * half:n + (k + 1) * half]
+        np.testing.assert_allclose(prep['c1'].numpy()[rows],
+                                   np.asarray(want['c1'][k, :, 0]),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(prep['c2'].numpy()[rows],
+                                   np.asarray(want['c2'][k, :, 0]),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(wg[rows, :n],
+                                      np.asarray(want['wa'][k, :n, :n]))
+        np.testing.assert_array_equal(wg[rows, n:],
+                                      np.asarray(want['wb'][k, :n, :add_c]))
+    # The merged grouped RepConv, densified as the TPU kernel takes it:
+    # dense[o, tap * n + 8 * (o // 8) + j] = rep[o, j, tap].
+    rep = prep['rep'].reshape(n, 8, 25).numpy()
+    dense = np.zeros((n, 25, n), np.float32)
+    for o in range(n):
+        dense[o, :, 8 * (o // 8):8 * (o // 8) + 8] = rep[o].T
+    np.testing.assert_allclose(dense.reshape(n, 25 * n),
+                               np.asarray(want['rep']), rtol=0, atol=1e-7)
+
+
+def test_encoder_shift_block_fused_matches_unfused_and_keeps_its_input():
+    n = 48
+    blk = layers.EncoderShiftBlock(n, rounds=2, fused=True)
+    blk.load_state_dict(init_state(blk, 6), strict=True)
+    x = torch.from_numpy(rand((4, n, 12, 20), 7))
+    x0 = x.clone()
+    params = {k: v.clone() for k, v in blk.state_dict().items()}
+    with torch.no_grad():
+        got = blk(x)
+        blk.fused = False
+        want = blk(x)
+    assert torch.equal(x, x0)
+    # prep_naf works on copies: the weights are not written either
+    assert all(torch.equal(v, params[k]) for k, v in blk.state_dict().items())
+    assert norm_err(got.numpy(), want.numpy()) < 1e-5
+
+
+def test_gate_and_rep_tiles_fit_shared_memory():
+    for n, add_c in ((48, 24), (80, 40), (48, 0), (80, 0)):
+        for itemsize in (2, 4):
+            th, tw = naf_chw.naf_gate_tile(n, add_c, itemsize)
+            assert naf_chw.naf_gate_smem(n, add_c, itemsize, th,
+                                         tw) <= chw.SMEM_BYTES
+            th, tw = naf_chw.naf_rep_tile(n, itemsize)
+            assert naf_chw.naf_rep_smem(n, itemsize, th, tw) <= chw.SMEM_BYTES
+    # the sizes csrc/naf_gate.cu and naf_rep.cu state at n = 80
+    assert naf_chw.naf_gate_tile(80, 40, 2) == (16, 16)
+    assert naf_chw.naf_gate_smem(80, 40, 2, 16, 16) == 184048
+    assert naf_chw.naf_gate_tile(80, 40, 4) == (8, 16)
+    assert naf_chw.naf_gate_smem(80, 40, 4, 8, 16) == 203072
+    assert naf_chw.naf_rep_smem(80, 4, 16, 16) == 209920
+
+
+def test_depthwise_repconv_is_not_ported_yet():
+    mod = layers.CAB1(16, kernel_size=5, reduction=1, repconv_depthwise=True)
+    with pytest.raises(NotImplementedError, match='groups of 8'):
+        naf_chw.prep_naf(dict(mod.named_parameters()), '', torch.float32)
