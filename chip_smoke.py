@@ -7,26 +7,33 @@ Phases, each of which must pass:
 
 1. device: the card's name and power limit, torch and CUDA versions.  There
    is no CPU path: without a CUDA device the run fails.
-2. build: compile the eight CUDA kernels from ``shiftnet_tpu_torch/csrc``
+2. build: compile the nine CUDA kernels from ``shiftnet_tpu_torch/csrc``
    into one library (one nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
-   at the shapes of the 720p deblur_plus window (T = 4), in float32 (TF32
-   off) and bfloat16, with median times over 20 runs, the least time the
-   card could take for the same work (``bound_ms``) and, where one PyTorch
-   call computes the same function, that call's time (``library_ms``).
-4. slice: the port's default ``Evaluator('deblur_plus')`` (the
-   ``fused_chw`` configuration, the main path) on a seeded 40x720x1280 bf16
-   window through ``forward_window``, with every kernel's launches counted
-   against the counts the path implies and the peak device memory held
-   against the window plan's estimate; the same for the ``fused_tfr``
-   configuration (the TFR U-Nets' kernels only); then the whole model on the
-   kernels, in both configurations, against the all-plain model on a
-   5x720x1280 window, in float32.
+   at the shapes of the 720p deblur_plus window (T = 4) and, for conv_cat,
+   also the 480x848 denoise window, in float32 (TF32 off) and bfloat16,
+   with median times over 20 runs, the least time the card could take for
+   the same work (``bound_ms``) and, where one PyTorch call computes the
+   same function, that call's time (``library_ms``).
+4. deblur: the port's default ``Evaluator('deblur_plus')`` (bf16,
+   ``fused_chw``: the main path) on a seeded 40x720x1280 window through
+   ``forward_window``, with every kernel's launches counted against the
+   counts the path implies and the peak device memory held against the
+   window plan's estimate; the same for the ``conv_concat`` configuration
+   (conv_cat at rconcat and conv_hr0) and the ``fused_tfr`` configuration
+   (the TFR U-Nets' kernels only); then the whole model in each
+   configuration against the all-plain model on a 5x720x1280 window.
+5. denoise: the port's default ``Evaluator('denoise_plus')`` (float32,
+   ``fused_chw``) at sigma 10/255 on the bench_denoise window (16x480x848)
+   and a DAVIS-length one (54x480x848), each also with ``conv_concat``,
+   with launches, times and peaks as above; a DAVIS-width 16x480x852 window,
+   which must take the quadrant plan; the bf16 window's drift from the
+   float32 one (information, not a check); the whole model against the
+   all-plain model on a 5x480x848 window, with conv_concat off and on.
 
-The line before the last is a JSON object with each kernel's launches on the
-main path (and on the ``fused_tfr`` path), its error, its times and its
-bound; the last line is ``{"ok": true, "device": {...}}``.  Any failure
-raises before those lines.
+The line before the last is a JSON object with each kernel's launches on
+every driven path, its error, its times and its bound; the last line is
+``{"ok": true, "device": {...}}``.  Any failure raises before those lines.
 """
 from __future__ import annotations
 
@@ -70,12 +77,31 @@ PEAK_OPS_PER_S = {'bfloat16': 989e12, 'float32': 67e12}
 # blocks x 8 rounds x (1 shift, CAB2 + CAB1 x 3 kernels).
 MAIN_PATH_LAUNCHES = {'cab_front': 172, 'cab_back': 172, 'conv': 29,
                       'up_skip': 22, 'shift_round': 56, 'naf_gate': 112,
-                      'naf_rep': 112, 'naf_back': 112}
+                      'naf_rep': 112, 'naf_back': 112, 'conv_cat': 0}
 # The fused_tfr configuration (the TFR U-Nets' kernels only), still driven:
 # 10 TFR U-Nets x (16 CABs, 2 down convs, 2 up_skips).
 TFR_PATH_LAUNCHES = {'cab_front': 160, 'cab_back': 160, 'conv': 20,
                      'up_skip': 20, 'shift_round': 0, 'naf_gate': 0,
-                     'naf_rep': 0, 'naf_back': 0}
+                     'naf_rep': 0, 'naf_back': 0, 'conv_cat': 0}
+# denoise_plus on the fused_chw path: Encoder2's 13 CABs are the deblur 11
+# and its 4 ShiftCABs (levels 0 and 1) in place of the 2 level-1 CABs.
+DENOISE_LAUNCHES = dict(MAIN_PATH_LAUNCHES, cab_front=174, cab_back=174)
+
+
+def with_conv_concat(launches):
+    """The conv_concat configuration: rconcat and conv_hr0 go from conv to
+    one conv_cat launch each."""
+    return dict(launches, conv=launches['conv'] - 2, conv_cat=2)
+
+
+# The denoise protocol (the JAX package's tools/bench_denoise.py): 480x848,
+# one_len 12 + 2+2 halo, sigma 10/255, float32; a DAVIS-length window of
+# 50 outputs; a DAVIS-width frame (854 cropped to a multiple of 4).
+DN_H, DN_W = 480, 848
+DN_T = 12 + 2 * HALO
+DN_T_DAVIS = 50 + 2 * HALO
+DN_W_DAVIS = 852
+SIGMA = 10.0 / 255.0
 
 KERNELS = {
     'cab_front': ('shiftnet_tpu_torch/csrc/cab_front.cu',
@@ -95,6 +121,8 @@ KERNELS = {
                 'shiftnet_tpu/ops/naf_chw.py:909', None),
     'naf_back': ('shiftnet_tpu_torch/csrc/naf_back.cu',
                  'shiftnet_tpu/ops/naf_chw.py:1019', None),
+    'conv_cat': ('shiftnet_tpu_torch/csrc/conv_cat.cu',
+                 'shiftnet_tpu/ops/chw.py:906', None),
 }
 
 
@@ -282,6 +310,30 @@ def _cases():
                       f'{" bias" if bias else ""}{" prelu" if pre else ""}'
                       f' {h}x{w}', cv))
 
+    # -- row 5: conv_cat (deblur rconcat and conv_hr0, denoise rconcat);
+    # the library call is F.conv2d on the input already concatenated (the
+    # cat not timed), and none with the PReLU
+    for n_in, bias, pre, h, w in ((3, True, False, H, W),
+                                  (2, True, False, H, W),
+                                  (3, False, True, DN_H, DN_W)):
+        def cat(rng, dt, n_in=n_in, bias=bias, pre=pre, h=h, w=w):
+            xs = [arr(rng, (T_CHECK, 24, h, w), dt) for _ in range(n_in)]
+            wt = wgt(rng, (24, 24 * n_in, 3, 3), dt)
+            b = f32(rng, (24,), 0.01) if bias else None
+            a = torch.full((1,), 0.25, device='cuda') if pre else None
+            lib = None
+            if not pre:
+                xcat = torch.cat(xs, 1)
+                bl = None if b is None else b.to(dt)
+                lib = lambda: F.conv2d(xcat, wt, bl, 1, 1)  # noqa: E731
+            return Case(lambda: chw.conv_concat(xs, wt, b, a),
+                        lambda: chw.conv_concat_plain(xs, wt, b, a),
+                        [*xs, wt, b, a],
+                        2 * 9 * 24 * n_in * 24 * T_CHECK * h * w, lib)
+        cases.append(('conv_cat', f'{n_in}x24->24'
+                      f'{" bias" if bias else ""}{" prelu" if pre else ""}'
+                      f' {h}x{w}', cat))
+
     # -- row 6: up_skip (TFR, then Encoder2's up21 / up32 at C=80)
     for cin, cout, h, w in ((36, 24, H // 2, W // 2),
                             (48, 36, H // 4, W // 4),
@@ -412,30 +464,31 @@ def kernel_phase(card):
     return rec
 
 
-def _clip(t, seed):
+def _clip(t, h, w, seed):
     rng = np.random.default_rng(seed)
-    return rng.uniform(0.0, 1.0, (t, H, W, 3)).astype(np.float32)
+    return rng.uniform(0.0, 1.0, (t, h, w, 3)).astype(np.float32)
 
 
-def _drive(ev, clip, expected, label, card, timed):
+def _drive(ev, clip, expected, label, card, timed, sigma=None):
     """One window through ``ev.forward_window`` with the launch counts set
     to 0 just before and read just after, then ``timed`` timed windows;
     the peak device memory of all of them is held against the window
-    plan's estimate.  Returns the counts."""
+    plan's estimate.  Returns the counts, the window times, the peak and
+    the first window's output."""
     import torch
     from shiftnet_tpu_torch.ops import chw
 
-    t = clip.shape[0]
+    t, h, w = clip.shape[:3]
     plan = ev.window_plan(clip.shape)
-    estimate = t * H * W * ev.bytes_per_px
+    estimate = t * h * w * ev.bytes_per_px
     print(f'slice: {label} window {clip.shape} plan {plan}, estimated peak '
           f'{estimate / 1e9:.3f} GB ({ev.bytes_per_px} B/px)', flush=True)
     torch.cuda.reset_peak_memory_stats()
     chw.reset_launches()
-    out = ev.forward_window(clip)
+    out = ev.forward_window(clip, sigma)
     launches = dict(chw.LAUNCHES)
     print(f'slice: {label} launches {launches}', flush=True)
-    if out.shape != (t - 2 * HALO, H, W, 3):
+    if out.shape != (t - 2 * HALO, h, w, 3):
         raise AssertionError(f'{label}: output shape {out.shape}')
     if not np.isfinite(out).all():
         raise AssertionError(f'{label}: non-finite output')
@@ -445,70 +498,170 @@ def _drive(ev, clip, expected, label, card, timed):
     times = []
     for _ in range(timed):
         t0 = time.perf_counter()
-        ev.forward_window(clip)
+        ev.forward_window(clip, sigma)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     fps = timed * (t - 2 * HALO) / sum(times)
-    print(f'slice: deblur_plus 720p bf16 {label} window T={t} plan {plan}: '
+    dtn = str(ev.dtype).split('.')[-1]
+    print(f'slice: {label} {dtn} window T={t} {h}x{w} plan {plan}: '
           f'{fps:.4f} fps (windows {", ".join(f"{s:.3f}" for s in times)} '
-          f's) peak {peak / 1e9:.3f} GB = {peak / (t * H * W):.0f} B/px '
+          f's) peak {peak / 1e9:.3f} GB = {peak / (t * h * w):.0f} B/px '
           f'against the estimate {estimate / 1e9:.3f} GB [{card}]',
           flush=True)
     if peak > estimate:
         raise AssertionError(f'{label}: the window plan underestimates the '
                              'peak')
-    return launches
+    return launches, times, peak, out
 
 
-def slice_phase(card, logs):
-    """deblur_plus windows through the port's default Evaluator
-    (``fused_chw``, the main path) and through the ``fused_tfr``
-    configuration, each with its own launch counts (logs under ``logs``);
-    then the whole model on the kernels against the all-plain model.
-    Returns the launches of each path."""
+def _pair(label, off, on, card):
+    """conv_concat off and on, side by side: mean window time and peak."""
+    print(f'pair: {label}: conv_concat off {statistics.mean(off[1]):.3f} s '
+          f'peak {off[2] / 1e9:.3f} GB | on {statistics.mean(on[1]):.3f} s '
+          f'peak {on[2] / 1e9:.3f} GB [{card}]', flush=True)
+
+
+def _whole_model(variant, state, clip, sigma, names, dtypes, logs):
+    """The model on the kernels against the all-plain model on one small
+    window: {(configuration, dtype name): normalized max error}."""
+    import torch
+    from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for dtn in dtypes:
+        outs = {}
+        for name in ('plain', *names):
+            ev = Evaluator(variant, state, device='cuda',
+                           bf16=dtn == 'bfloat16',
+                           overrides=CONFIG_OVERRIDES[name], result_path=logs)
+            outs[name] = torch.from_numpy(ev.forward_window(clip, sigma))
+            del ev
+            torch.cuda.empty_cache()
+        for name in names:
+            res[name, dtn] = _norm_err(outs[name], outs['plain'])[0]
+    t, h, w = clip.shape[:3]
+    for name in names:
+        print(f'slice: {variant} {name} model vs all-plain model, {t}x{h}x{w}'
+              ': ' + ', '.join(f'{dtn} err {res[name, dtn]:.3e}'
+                               for dtn in dtypes)
+              + f' (float32 tol {SLICE_TOL_F32:.0e})', flush=True)
+        if not res[name, 'float32'] <= SLICE_TOL_F32:
+            raise AssertionError(f'the {variant} {name} model disagrees with '
+                                 'the plain model')
+    return res
+
+
+def deblur_phase(card, logs):
+    """deblur_plus 40x720x1280 bf16 windows through the port's default
+    Evaluator (``fused_chw``, the main path), the ``conv_concat``
+    configuration and the ``fused_tfr`` configuration, each with its own
+    launch counts; then the whole model in each configuration against the
+    all-plain model.  Returns the launches of each path."""
     import torch
     from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
     from shiftnet_tpu_torch.models import build_model, init_state
 
     state = init_state(build_model('deblur_plus'), seed=0)
-    clip = _clip(ONE_LEN + 2 * HALO, seed=1)
-    launches = {}
+    clip = _clip(ONE_LEN + 2 * HALO, H, W, seed=1)
+    runs = {}
     for name, overrides, expected, timed in (
             ('fused_chw', None, MAIN_PATH_LAUNCHES, 3),  # the default
+            ('conv_concat', CONFIG_OVERRIDES['conv_concat'],
+             with_conv_concat(MAIN_PATH_LAUNCHES), 1),
             ('fused_tfr', CONFIG_OVERRIDES['fused_tfr'], TFR_PATH_LAUNCHES,
              1)):
         ev = Evaluator('deblur_plus', state, device='cuda',
                        overrides=overrides, result_path=logs)
-        if name == 'fused_chw' and not ev.model.cfg.fused_chw:
-            raise AssertionError('the default Evaluator is not fused_chw')
-        launches[name] = _drive(ev, clip, expected, name, card, timed)
+        cfg = ev.model.cfg
+        if name == 'fused_chw' and not (cfg.fused_chw and not cfg.conv_concat
+                                        and ev.dtype == torch.bfloat16):
+            raise AssertionError('the default deblur Evaluator is not bf16 '
+                                 'fused_chw with conv_concat off')
+        runs[name] = _drive(ev, clip, expected, f'deblur_plus {name}', card,
+                            timed)[:3]
         del ev
         torch.cuda.empty_cache()
+    _pair(f'deblur_plus {clip.shape[0]}x{H}x{W} bf16', runs['fused_chw'],
+          runs['conv_concat'], card)
+    _whole_model('deblur_plus', state, _clip(2 * HALO + 1, H, W, seed=2),
+                 None, ('fused_chw', 'conv_concat', 'fused_tfr'),
+                 ('float32', 'bfloat16'), logs)
+    return {name: run[0] for name, run in runs.items()}
 
-    # The whole model on the kernels against the all-plain model.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    small = _clip(2 * HALO + 1, seed=2)
-    res = {}
-    for dtn in ('float32', 'bfloat16'):
-        outs = {}
-        for name, overrides in CONFIG_OVERRIDES.items():
-            ev = Evaluator('deblur_plus', state, device='cuda',
-                           bf16=dtn == 'bfloat16', overrides=overrides,
-                           result_path=logs)
-            outs[name] = torch.from_numpy(ev.forward_window(small))
-            del ev
-            torch.cuda.empty_cache()
-        for name in ('fused_chw', 'fused_tfr'):
-            res[name, dtn] = _norm_err(outs[name], outs['plain'])[0]
-    for name in ('fused_chw', 'fused_tfr'):
-        print(f'slice: {name} model vs all-plain model, 5x{H}x{W}: float32 '
-              f'err {res[name, "float32"]:.3e} (tol {SLICE_TOL_F32:.0e}), '
-              f'bfloat16 err {res[name, "bfloat16"]:.3e}', flush=True)
-        if not res[name, 'float32'] <= SLICE_TOL_F32:
-            raise AssertionError(f'the {name} model disagrees with the '
-                                 'plain model')
+
+def denoise_phase(card, logs):
+    """denoise_plus through the port's default Evaluator (float32,
+    ``fused_chw``, conv_concat off) on the bench_denoise window, a
+    DAVIS-width window (the quadrant plan) and a DAVIS-length window, the
+    two 480x848 windows also with conv_concat on; the bf16 drift, for
+    information; then the whole model against the all-plain model.
+    Returns the launches of each path."""
+    import torch
+    from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
+    from shiftnet_tpu_torch.models import build_model, init_state
+    from shiftnet_tpu_torch.ops import chw
+
+    state = init_state(build_model('denoise_plus'), seed=0)
+    clip = _clip(DN_T, DN_H, DN_W, seed=3)
+    long = _clip(DN_T_DAVIS, DN_H, DN_W, seed=4)
+    runs = {}
+    for name, overrides, expected in (
+            ('fused_chw', None, DENOISE_LAUNCHES),  # the default
+            ('conv_concat', CONFIG_OVERRIDES['conv_concat'],
+             with_conv_concat(DENOISE_LAUNCHES))):
+        ev = Evaluator('denoise_plus', state, device='cuda',
+                       overrides=overrides, result_path=logs)
+        cfg = ev.model.cfg
+        if name == 'fused_chw' and not (cfg.fused_chw and not cfg.conv_concat
+                                        and ev.dtype == torch.float32):
+            raise AssertionError('the default denoise Evaluator is not '
+                                 'float32 fused_chw with conv_concat off')
+        runs[name] = _drive(ev, clip, expected, f'denoise_plus {name}', card,
+                            3, SIGMA)
+        runs[name, 'long'] = _drive(ev, long, expected,
+                                    f'denoise_plus {name} DAVIS-length',
+                                    card, 1, SIGMA)[:3]
+        if name == 'fused_chw':
+            wide = _clip(DN_T, DN_H, DN_W_DAVIS, seed=5)
+            plan = ev.window_plan(wide.shape)
+            chw.reset_launches()
+            out = ev.forward_window(wide, SIGMA)
+            launches = dict(chw.LAUNCHES)
+            print(f'slice: denoise_plus DAVIS-width window {wide.shape} plan '
+                  f'{plan}, launches {launches}', flush=True)
+            if (plan != 'quadrant' or out.shape != (DN_T - 2 * HALO, DN_H,
+                                                    DN_W_DAVIS, 3)
+                    or not np.isfinite(out).all()
+                    or launches != {k: 4 * v for k, v in expected.items()}):
+                raise AssertionError('the DAVIS-width window did not run as '
+                                     'four finite quadrant tiles')
+            del out
+        del ev
+        torch.cuda.empty_cache()
+    _pair(f'denoise_plus {DN_T}x{DN_H}x{DN_W} float32', runs['fused_chw'],
+          runs['conv_concat'], card)
+    _pair(f'denoise_plus {DN_T_DAVIS}x{DN_H}x{DN_W} float32',
+          runs['fused_chw', 'long'], runs['conv_concat', 'long'], card)
+
+    # For information: the bf16 window's drift from the float32 one.
+    ev = Evaluator('denoise_plus', state, device='cuda', bf16=True,
+                   result_path=logs)
+    out16 = np.clip(ev.forward_window(clip, SIGMA), 0, 1)
+    out32 = np.clip(runs['fused_chw'][3], 0, 1)
+    mse = float(np.mean((out16.astype(np.float64) - out32) ** 2))
+    print(f'info: denoise_plus {DN_T}x{DN_H}x{DN_W} fused_chw bf16 vs float32 '
+          f'output drift {10 * np.log10(1 / mse):.2f} dB PSNR [{card}]',
+          flush=True)
+    launches = {'denoise': runs['fused_chw'][0],
+                'denoise_conv_concat': runs['conv_concat'][0]}
+    del ev, out16, out32, runs
+    torch.cuda.empty_cache()
+
+    _whole_model('denoise_plus', state, _clip(2 * HALO + 1, DN_H, DN_W, 6),
+                 SIGMA, ('fused_chw', 'conv_concat'), ('float32',), logs)
     return launches
 
 
@@ -518,13 +671,23 @@ def main():
     import torch
     rec = kernel_phase(card)
     with tempfile.TemporaryDirectory() as logs:
-        launches = slice_phase(card, logs)
+        launches = deblur_phase(card, logs)
+        launches.update(denoise_phase(card, logs))
     kernels = []
     for name, (src, repl, also) in KERNELS.items():
         r = rec[name]
+        # ``launches``: the main path that carries the kernel, the default
+        # deblur window for the first eight and the conv_concat window for
+        # conv_cat; the other keys give every driven path.
+        main_path = 'conv_concat' if name == 'conv_cat' else 'fused_chw'
         entry = {'name': name, 'route': 'cuda', 'source': src,
-                 'replaces': repl, 'launches': launches['fused_chw'][name],
+                 'replaces': repl, 'launches': launches[main_path][name],
+                 'launches_fused_chw': launches['fused_chw'][name],
                  'launches_fused_tfr': launches['fused_tfr'][name],
+                 'launches_conv_concat': launches['conv_concat'][name],
+                 'launches_denoise': launches['denoise'][name],
+                 'launches_denoise_conv_concat':
+                     launches['denoise_conv_concat'][name],
                  'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                  'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                  'bound_by': r['bound_by'], 'library_ms': r['library_ms']}

@@ -1,12 +1,15 @@
-"""Windowed deblur evaluation on the port (counterpart of
+"""Windowed deblur and denoise evaluation on the port (counterpart of
 ``shiftnet_tpu/eval/runner.py``).
 
-Mirrors ``inference/test_deblur.py``: scan video folders, run windowed
-inference, score PSNR and the reference SSIM per frame, log per-video and
-total averages to a text log.  The window plan (the whole window at once,
-or two half-height tiles) is decided before the run from the device's free
-memory and a stated per-pixel estimate, and logged; an out-of-memory error
-is not caught.
+Mirrors ``inference/test_deblur.py`` and ``inference/test_denoise.py``: scan
+video folders, run windowed inference (denoise: on clips with seeded
+gaussian noise and a constant noise map), score PSNR and the reference SSIM
+per frame, log per-video and total averages to a text log.  The window plan
+is decided before the run and logged: the whole window at once, two
+half-height tiles when the device's free memory is below a stated per-pixel
+estimate, or the reference's four quadrant tiles when asked for or when the
+frame's height or width is not a multiple of 8 (the model's three stride-2
+levels need one).  An out-of-memory error is not caught.
 """
 from __future__ import annotations
 
@@ -20,49 +23,68 @@ import torch
 
 from shiftnet_tpu_torch.eval.metrics import score_pair
 from shiftnet_tpu_torch.eval.window import (half_slices, mod_crop,
-                                            plan_deblur_chunks)
+                                            plan_deblur_chunks,
+                                            plan_denoise_chunks,
+                                            quadrant_pads, quadrant_slices)
 from shiftnet_tpu_torch.models import CONFIGS, GShiftNetConfig, build_model
 
 HALO = 2  # input frames on each side of a window's outputs (test_deblur.py)
 # The inference-local protocol the published numbers use (skimage PSNR and
 # the scipy-gaussian SSIM, ``test_deblur.py:25-49``).
 METRICS = {'psnr': {'type': 'psnr'}, 'ssim': {'type': 'ssim'}}
-# Peak device memory of a deblur_plus forward per input pixel (T * H * W),
-# by configuration and compute type, with ~10 % headroom over the peak of a
-# 40x720x1280 bf16 window measured on an H100 80GB HBM3 (700 W) by
-# chip_smoke.py (PERF.md, "H100 port"): fused_chw 16.98 GB, 461 B/px;
-# fused_tfr 39.9 GB, 1082 B/px.  The plain configuration runs the same plain
-# Encoder2 as fused_tfr, where that peak is, and shares its figure; the
-# float32 figures double the bf16 ones.
-WINDOW_BYTES_PER_PX = {
-    ('fused_chw', torch.bfloat16): 510, ('fused_chw', torch.float32): 1020,
-    ('fused_tfr', torch.bfloat16): 1200, ('fused_tfr', torch.float32): 2400,
-    ('plain', torch.bfloat16): 1200, ('plain', torch.float32): 2400,
+# Peak device memory of a forward per input pixel (T * H * W) in a bf16
+# window, by variant and configuration, with ~10 % headroom over peaks
+# measured on an H100 80GB HBM3 (700 W) by chip_smoke.py (PERF.md, "H100
+# port"); a float32 window takes twice the figure.  The peak of every
+# fused_chw window sits in Encoder2's decoder_level1 shift blocks, so
+# conv_concat (which drops the rconcat and conv_hr0 concats) shares its
+# configuration's figure.
+# - deblur_plus, 40x720x1280 bf16: fused_chw and conv_concat 16.984 GB,
+#   461 B/px; fused_tfr 38.4-39.9 GB, up to 1082 B/px.  The plain
+#   configuration runs the same plain Encoder2 as fused_tfr, where that
+#   peak is, and shares its figure.
+# - denoise_plus, float32, 480x848: fused_chw and conv_concat 5.456 GB at
+#   T = 16 (838 B/px) and 18.207 GB at T = 54 (828 B/px); the bf16 figure
+#   is half of that, not measured.  fused_tfr and plain were not measured
+#   and take deblur_plus's figures.
+_BF16_BYTES_PER_PX = {
+    ('deblur_plus', 'fused_chw'): 510, ('deblur_plus', 'conv_concat'): 510,
+    ('deblur_plus', 'fused_tfr'): 1200, ('deblur_plus', 'plain'): 1200,
+    ('denoise_plus', 'fused_chw'): 461, ('denoise_plus', 'conv_concat'): 461,
+    ('denoise_plus', 'fused_tfr'): 1200, ('denoise_plus', 'plain'): 1200,
 }
+WINDOW_BYTES_PER_PX = {
+    (variant, config, dtype): factor * b
+    for (variant, config), b in _BF16_BYTES_PER_PX.items()
+    for dtype, factor in ((torch.bfloat16, 1), (torch.float32, 2))}
 
 
 def configuration(cfg: GShiftNetConfig) -> str:
-    """Which kernels a model runs: ``fused_chw`` (all of them),
-    ``fused_tfr`` (the TFR U-Nets') or ``plain`` (none)."""
+    """Which kernels a model runs: ``fused_chw`` (all of them but
+    conv_cat), ``conv_concat`` (all of them, conv_cat at rconcat and
+    conv_hr0), ``fused_tfr`` (the TFR U-Nets') or ``plain`` (none)."""
     if cfg.fused_chw:
-        return 'fused_chw'
+        return 'conv_concat' if cfg.conv_concat else 'fused_chw'
     return 'fused_tfr' if cfg.fused_tfr else 'plain'
 
 
 # The model overrides that select each configuration.
-CONFIG_OVERRIDES = {'fused_chw': {'fused_chw': True},
-                    'fused_tfr': {'fused_chw': False, 'fused_tfr': True},
-                    'plain': {'fused_chw': False, 'fused_tfr': False}}
+CONFIG_OVERRIDES = {
+    'fused_chw': {'fused_chw': True, 'conv_concat': False},
+    'conv_concat': {'fused_chw': True, 'conv_concat': True},
+    'fused_tfr': {'fused_chw': False, 'fused_tfr': True,
+                  'conv_concat': False},
+    'plain': {'fused_chw': False, 'fused_tfr': False, 'conv_concat': False}}
 
 
 def _imread(path: str) -> np.ndarray:
-    """An RGB uint8 frame (the port's copy of
-    ``shiftnet_tpu/data/video_dataset.py:_imread``)."""
-    import imageio.v2 as imageio
-    img = imageio.imread(path)
-    if img.ndim == 2:
-        img = np.stack([img] * 3, axis=-1)
-    return img[..., :3]
+    """An RGB uint8 frame, grey and alpha dropped as in
+    ``shiftnet_tpu/data/video_dataset.py:_imread``.  Read with Pillow, the
+    decoder imageio uses there for PNG and JPEG (the GPU machine has Pillow
+    and no imageio)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert('RGB'))
 
 
 class EvalLogger:
@@ -79,12 +101,13 @@ class EvalLogger:
 
 
 class Evaluator:
-    """deblur evaluation on ``device`` with a torch-keyed ``state``
-    (``tools.params_io.load_state`` or ``models.init_state``).
+    """deblur / denoise evaluation on ``device`` with a torch-keyed
+    ``state`` (``tools.params_io.load_state`` or ``models.init_state``).
 
-    Deblur computes in bf16 with float32 parameters by default, and the
-    model runs on the CUDA kernels (``fused_chw``; the plain versions on the
-    CPU), as the JAX Evaluator does (``shiftnet_tpu/eval/runner.py:74``)."""
+    Deblur computes in bf16 and denoise in float32 by default, with float32
+    parameters, and the model runs on the CUDA kernels (``fused_chw``; the
+    plain versions on the CPU), as the JAX Evaluator does
+    (``shiftnet_tpu/eval/runner.py:51-74``)."""
 
     def __init__(self, variant: str, state: dict[str, torch.Tensor], *,
                  device: str | torch.device, result_path: str = 'results',
@@ -100,8 +123,9 @@ class Evaluator:
                                  future_frames=HALO, **overrides)
         self.model.load_state_dict(state, strict=True)
         self.model.to(self.device).eval()
+        self.noise_map = self.model.cfg.noise_map
         self.bytes_per_px = WINDOW_BYTES_PER_PX[
-            (configuration(self.model.cfg), self.dtype)]
+            (variant, configuration(self.model.cfg), self.dtype)]
         self.save_images = save_images
         self.result_path = result_path
         stamp = time.strftime('%Y-%m-%d %H:%M:%S')
@@ -116,26 +140,47 @@ class Evaluator:
                     - torch.cuda.memory_allocated(self.device))
         return None  # host memory: no device budget to plan against
 
-    def window_plan(self, shape: tuple) -> str:
-        """'full' when the window's estimated peak fits the budget, else
-        'half' (two half-height tiles, ``eval.window.half_slices``)."""
+    def window_plan(self, shape: tuple, quadrant: bool = False) -> str:
+        """'quadrant' (``eval.window.quadrant_slices``) when asked for or
+        when H or W is not a multiple of 8; else 'full' when the window's
+        estimated peak fits the budget, else 'half' (two half-height tiles,
+        ``eval.window.half_slices``)."""
         t, h, w = shape[:3]
+        if quadrant or h % 8 or w % 8:
+            ph, pw = quadrant_pads(h, w)
+            if h % 2 or w % 2 or h // 2 < ph or w // 2 < pw:
+                raise ValueError(
+                    f'window {h}x{w}: the quadrant tiles need an even height '
+                    'and width of at least 48 (tiles h/2 + pad, multiples '
+                    'of 16)')
+            return 'quadrant'
         need = t * h * w * self.bytes_per_px
         budget = self._budget()
         return 'full' if budget is None or need <= budget else 'half'
 
-    def _run(self, x: np.ndarray) -> np.ndarray:
+    def _run(self, x: np.ndarray, sigma: float | None) -> np.ndarray:
         xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         xt = xt.to(self.device).permute(0, 3, 1, 2).to(self.dtype).contiguous()
         with torch.inference_mode():
-            out = self.model(xt)
+            nm = None
+            if sigma is not None:  # the constant noise map, on the device
+                t, _, h, w = xt.shape
+                nm = torch.full((t, 1, h, w), sigma, device=self.device,
+                                dtype=self.dtype)
+            out = self.model(xt, nm)
         return out.permute(0, 2, 3, 1).float().cpu().numpy()
 
-    def forward_window(self, x: np.ndarray) -> np.ndarray:
+    def forward_window(self, x: np.ndarray, sigma: float | None = None, *,
+                       quadrant: bool = False) -> np.ndarray:
         """One (T, H, W, 3) window in [0, 1] -> (T - 2*HALO, H, W, 3)
-        float32."""
+        float32.  ``sigma``: the noise level in [0, 1] of the denoise
+        variants' constant noise map, required exactly when the variant
+        takes one.  ``quadrant`` forces the reference's four tiles."""
+        if (sigma is not None) != self.noise_map:
+            raise ValueError('sigma is required exactly when the variant '
+                             'takes a noise map')
         tt, hh, ww, _ = x.shape
-        plan = self.window_plan(x.shape)
+        plan = self.window_plan(x.shape, quadrant)
         budget = self._budget()
         self.logger.write(
             f'[plan] window {tuple(x.shape)} {self.dtype}: estimated '
@@ -143,10 +188,11 @@ class Evaluator:
             f'budget {"host" if budget is None else f"{budget / 1e9:.2f} GB"}'
             f' -> {plan}')
         if plan == 'full':
-            return self._run(x)
+            return self._run(x, sigma)
+        tiles = (half_slices if plan == 'half' else quadrant_slices)(hh, ww)
         out = np.zeros((tt - 2 * HALO, hh, ww, 3), np.float32)
-        for in_sl, crop_sl, out_sl in half_slices(hh, ww):
-            o = self._run(x[:, in_sl[0], in_sl[1]])
+        for in_sl, crop_sl, out_sl in tiles:
+            o = self._run(x[:, in_sl[0], in_sl[1]], sigma)
             out[:, out_sl[0], out_sl[1]] = o[:, crop_sl[0], crop_sl[1]]
         return out
 
@@ -180,6 +226,41 @@ class Evaluator:
             totals[v] = vsc
         return self._summarize(totals)
 
+    def eval_denoise(self, data_path: str, sigma: float, *,
+                     tile: bool = False, seed: int = 0) -> dict:
+        """Protocol of ``test_denoise.py:91-224``: GT-only video folders,
+        gaussian noise of ``sigma`` (on the 0-255 scale) drawn from
+        ``np.random.default_rng(seed)`` as the JAX Evaluator draws it, so a
+        seed gives both packages the same noisy clips; PSNR/SSIM against
+        the GT.  ``tile`` forces the reference's quadrant tiling."""
+        rng = np.random.default_rng(seed)
+        s = sigma / 255.0
+        totals: dict[str, dict[str, list]] = {}
+        for v in sorted(os.listdir(data_path)):
+            frames = sorted(glob.glob(os.path.join(data_path, v, '*')))
+            vsc = {name: [] for name in METRICS}
+            for ch in plan_denoise_chunks(len(frames), HALO):
+                t0 = time.time()
+                gt_clip = mod_crop(np.stack(
+                    [_imread(p) for p in frames[ch.in_start:ch.in_stop]]), 4)
+                clean = gt_clip.astype(np.float32) / 255.0
+                noisy = clean + rng.normal(0, s, clean.shape).astype(
+                    np.float32)
+                t1 = time.time()
+                out = self.forward_window(noisy, s, quadrant=tile)
+                t2 = time.time()
+                gts = list(gt_clip[HALO:gt_clip.shape[0] - HALO])
+                sc = self._score(out, gts, v, ch.out_start)
+                for name in vsc:
+                    vsc[name] += sc[name]
+                t3 = time.time()
+                self.logger.write(
+                    f'> {v}-{ch.in_start:05d} ' + self._fmt_last(sc)
+                    + f' pre:{t1 - t0:.3f}s fwd:{t2 - t1:.3f}s '
+                    f'post:{t3 - t2:.3f}s')
+            totals[v] = vsc
+        return self._summarize(totals, per_video_avg=True)
+
     def _score(self, out: np.ndarray, gts, video: str,
                index0: int) -> dict[str, list]:
         """Every configured metric per frame (``eval.metrics.score_pair``)."""
@@ -189,11 +270,11 @@ class Evaluator:
             for name, val in score_pair(img, gt, METRICS).items():
                 scores[name].append(val)
             if self.save_images:
-                import imageio.v2 as imageio
+                from PIL import Image
                 d = os.path.join(self.result_path, video)
                 os.makedirs(d, exist_ok=True)
-                imageio.imwrite(os.path.join(d, f'{index0 + i:03d}.png'),
-                                img.astype(np.uint8))
+                Image.fromarray(img.astype(np.uint8)).save(
+                    os.path.join(d, f'{index0 + i:03d}.png'))
         return scores
 
     @staticmethod
@@ -201,19 +282,30 @@ class Evaluator:
         return ', '.join(f'{name.upper()}={vals[-1]:.5g}'
                          for name, vals in sc.items() if vals)
 
-    def _summarize(self, totals: dict[str, dict[str, list]]) -> dict:
+    def _summarize(self, totals: dict[str, dict[str, list]],
+                   per_video_avg: bool = False) -> dict:
+        """Averages over all frames; with ``per_video_avg`` also the mean
+        of the per-video averages (``<metric>_video_avg``)."""
         names = list(METRICS)
         sums = {n: 0.0 for n in names}
+        vavg = {n: 0.0 for n in names}
         n_frames = 0
         for v, vsc in totals.items():
+            avgs = {n: float(np.mean(vsc[n])) for n in names}
             self.logger.write(f'# Video:{v} ' + ', '.join(
-                f'AVG-{n.upper()}={float(np.mean(vsc[n])):.5g}'
-                for n in names))
+                f'AVG-{n.upper()}={avgs[n]:.5g}' for n in names))
             for n in names:
                 sums[n] += sum(vsc[n])
+                vavg[n] += avgs[n]
             n_frames += len(vsc[names[0]])
         res: dict[str, Any] = {n: sums[n] / n_frames for n in names}
         res['n_frames'] = n_frames
         self.logger.write('# Total ' + ', '.join(
             f'AVG-{n.upper()}={res[n]:.5g}' for n in names))
+        if per_video_avg:
+            for n in names:
+                res[f'{n}_video_avg'] = vavg[n] / len(totals)
+            self.logger.write('# Total ' + ', '.join(
+                f"AVG-{n.upper()}={res[f'{n}_video_avg']:.5g}"
+                for n in names))
         return res

@@ -2,7 +2,7 @@
 
 Re-declared from ``shiftnet_tpu/models/gshift.py:29-111`` (that module
 imports flax).  The fields the port does not run yet (``stage2_chunk``,
-``conv_concat``, ``time_axis``) are not declared.
+``time_axis``) are not declared.
 """
 from __future__ import annotations
 
@@ -41,6 +41,9 @@ class GShiftNetConfig:
     fused_chw: bool = False         # the whole network on the CUDA kernels
     # (ops/chw, ops/naf_chw): every CAB, standalone conv, SkipUpSample and
     # shift block; implies fused_tfr
+    conv_concat: bool = False       # fused_chw only: rconcat and conv_hr0
+    # as one conv_cat launch over their inputs (ops.chw.conv_concat), so
+    # the 3*nf0 / 2*nf0 channel concat is never allocated
 
     @property
     def noise_map(self) -> bool:

@@ -11,9 +11,12 @@ CUDA kernel here (``ops/chw``, ``ops/naf_chw``), or on its plain version for
 CPU tensors; the concats, residual adds and the pixel shuffle stay plain
 torch, as they are XLA ops there.
 
-Not ported yet: the small variants' shift-block encoder
-(``encoder2_shift_encoder``) and add-fuse (``final_fuse_concat=False``), and
-the denoise variants' noise map and Shift_CABs; building those raises.
+The big variants run: deblur_plus, and denoise_plus with its noise-map
+input and Encoder2's ShiftCABs at levels 0 and 1.  With ``cfg.conv_concat``
+(fused path only, as in JAX) rconcat and conv_hr0 run as one ``conv_cat``
+launch each over their unconcatenated inputs.  Not ported yet: the small
+variants' shift-block encoder (``encoder2_shift_encoder``) and add-fuse
+(``final_fuse_concat=False``); building those raises.
 """
 from __future__ import annotations
 
@@ -27,14 +30,11 @@ from shiftnet_tpu_torch.models.config import CONFIGS, GShiftNetConfig
 from shiftnet_tpu_torch.models.layers import (CAB, Conv2d, ConvPReLU,
                                               DownSample, EncoderShiftBlock,
                                               PReLU, PixelShufflePack,
-                                              SkipUpSample, TFRUNet)
+                                              ShiftCAB, SkipUpSample, TFRUNet)
 
 
 def _check_ported(cfg: GShiftNetConfig) -> None:
-    unported = [f for f in ('encoder2_shift_encoder',
-                            'encoder2_level0_shift_cabs',
-                            'encoder2_level1_shift_cabs', 'noise_map')
-                if getattr(cfg, f)]
+    unported = ['encoder2_shift_encoder'] if cfg.encoder2_shift_encoder else []
     if not cfg.final_fuse_concat:
         unported.append('final_fuse_concat=False')
     if unported:
@@ -43,19 +43,23 @@ def _check_ported(cfg: GShiftNetConfig) -> None:
 
 
 class Encoder2(nn.Module):
-    """Temporal-fusion U-Net (``gshift_deblur1.py:548-642``), big variant:
-    plain-CAB encoder over 3 levels, shift blocks in the decoder.
+    """Temporal-fusion U-Net (``gshift_deblur1.py:548-642``, denoise
+    ``gshift_denoise1.py:573-670``), big variant: plain-CAB encoder over 3
+    levels (ShiftCABs at levels 0 and 1 in denoise_plus), shift blocks in
+    the decoder.
 
     On the fused path the CABs of the level chains write over their input,
     which is dead there: each chain starts on the fresh output of a conv.
-    ``concat``'s output is read by both ``skip_conv`` and ``down01``, and
-    enc11 / enc22 by ``skip_attn1`` / ``skip_attn2`` and the next down
-    conv, so the CABs that read those write fresh outputs."""
+    ``concat``'s output is read by both ``skip_conv`` and the next stage,
+    and enc11 / enc22 by ``skip_attn1`` / ``skip_attn2`` and the next down
+    conv, so the CABs that read those write fresh outputs.  A ShiftCAB
+    never writes its input."""
 
     def __init__(self, cfg: GShiftNetConfig):
         super().__init__()
         nf, nf0, red = cfg.n_feats2, cfg.n_feats0, cfg.ca_reduction
         fused = cfg.fused_chw
+        self.conv_concat = cfg.conv_concat
         shift_kw = dict(rounds=cfg.shift_rounds, reduction=red,
                         boundary_patch=cfg.boundary_patch,
                         mid_ca=cfg.cab_mid_ca, last_bias=cfg.cab_last_bias,
@@ -65,11 +69,22 @@ class Encoder2(nn.Module):
         def cab(c):
             return CAB(c, 3, red, fused=fused)
 
+        def shift_cab(c, reverse):
+            return ShiftCAB(c, 3, red, reverse=reverse, fused=fused)
+
         self.concat = cab(nf0)
+        self.level0_shift_cabs = cfg.encoder2_level0_shift_cabs
+        if self.level0_shift_cabs:
+            self.encoder_level0 = shift_cab(nf0, False)
+            self.encoder_level0_1 = shift_cab(nf0, True)
         self.down01 = ConvPReLU(
             Conv2d(nf0, nf, 2, stride=2, padding=0, fused=fused))
-        self.encoder_level1 = cab(nf)
-        self.encoder_level1_1 = cab(nf)
+        if cfg.encoder2_level1_shift_cabs:
+            self.encoder_level1 = shift_cab(nf, False)
+            self.encoder_level1_1 = shift_cab(nf, True)
+        else:
+            self.encoder_level1 = cab(nf)
+            self.encoder_level1_1 = cab(nf)
         self.down12 = DownSample(nf, nf, dp, fused=fused)
         self.encoder_level2 = cab(nf)
         self.encoder_level2_1 = cab(nf)
@@ -96,6 +111,8 @@ class Encoder2(nn.Module):
     def forward(self, x):
         x = self.concat(x)
         skip = self.skip_conv(x)  # the full-res shortcut is only read here
+        if self.level0_shift_cabs:
+            x = self.encoder_level0_1(self.encoder_level0(x))
         x = self.down01(x)
         enc11 = self.encoder_level1_1(self.encoder_level1(x, inplace=True),
                                       inplace=True)
@@ -116,7 +133,7 @@ class Encoder2(nn.Module):
             self.decoder_level1(y)))
         up = self.upsample0(y)
         del y
-        out = self.conv_hr0(torch.cat([up, skip], dim=1))
+        out = self.conv_hr0.forward_cat([up, skip], virtual=self.conv_concat)
         del up, skip
         return self.out_conv(out, inplace=True)
 
@@ -156,27 +173,35 @@ class GShiftNet(nn.Module):
             y = self.get_submodule(f'{prefix}{i + 1}')(y)
         return y
 
-    def forward(self, x):
-        """x: (T, C_in, H, W) in the compute type -> (T - past - future, 3,
-        H, W)."""
+    def forward(self, x, noise_map=None):
+        """x: (T, 3, H, W) in the compute type -> (T - past - future, 3, H,
+        W).  The denoise variants take ``noise_map`` (T, 1, H, W), which is
+        concatenated to x as a fourth input channel."""
         cfg = self.cfg
         t = x.shape[0]
         center = slice(cfg.past_frames, t - cfg.future_frames)
-        x0 = self.feat_extract(x)
+        if cfg.noise_map:
+            if noise_map is None:
+                raise ValueError(f'{cfg.name} takes a noise map')
+            x0 = self.feat_extract(
+                torch.cat([x, noise_map.to(x.dtype)], dim=1))
+        else:
+            x0 = self.feat_extract(x)
         y = self._orbs('orb', x0)
-        sam0 = y + x0 if cfg.stage_residual else y
+        feats = y + x0 if cfg.stage_residual else y  # sam_features0
         del y
-        if cfg.stage2_uses_conv_trans:
-            feats = self.conv_trans(sam0)
+        if cfg.stage2_uses_conv_trans:  # stage2 reads conv_trans's output
+            feats = self.conv_trans(feats)
             dec = self.stage1(feats)
         else:  # conv_trans's output dies inside stage1
-            feats = sam0
-            dec = self.stage1(self.conv_trans(sam0))
-        z = torch.cat([x0[center], feats[center], dec[center]], dim=1)
-        del x0, sam0, dec, feats
-        z = self.rconcat(z)
-        if cfg.rconcat_act:
-            z = self.lrelu(z)
+            dec = self.stage1(self.conv_trans(feats))
+        parts = [x0[center], feats[center], dec[center]]
+        del x0, dec, feats
+        # rconcat, with the PReLU after it (denoise) inside the launch
+        z = self.rconcat.forward_cat(
+            parts, self.lrelu.weight if cfg.rconcat_act else None,
+            virtual=cfg.conv_concat)
+        del parts
         y = self._orbs('rorb', z)
         if cfg.stage_residual:
             y = y + z

@@ -24,7 +24,7 @@ from torch import nn
 from shiftnet_tpu_torch.ops import chw, naf_chw
 from shiftnet_tpu_torch.ops.norm import layer_norm_2d
 from shiftnet_tpu_torch.ops.resize import bilinear_up2x, pixel_shuffle
-from shiftnet_tpu_torch.ops.shift import gsts
+from shiftnet_tpu_torch.ops.shift import gsts, temporal_channel_shift
 
 
 class Conv2d(nn.Module):
@@ -56,6 +56,26 @@ class Conv2d(nn.Module):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
                         self.padding, groups=self.groups)
+
+    def forward_cat(self, xs: list[torch.Tensor],
+                    alpha: torch.Tensor | None = None, *,
+                    virtual: bool = False) -> torch.Tensor:
+        """This conv over ``torch.cat(xs, dim=1)``, then PReLU with slope
+        ``alpha`` if given.  With ``fused`` the slope is applied inside the
+        launch (one rounding, as the JAX fused path does), and ``virtual``
+        (``GShiftNetConfig.conv_concat``, which acts on the fused path only,
+        as in JAX) never builds the concat: ``ops.chw.conv_concat`` sums the
+        per-input convs."""
+        if not self.fused:
+            y = self(torch.cat(xs, dim=1))
+            return y if alpha is None else chw.prelu(y, alpha)
+        dt = xs[0].dtype
+        b = None if self.bias is None else self.bias.to(dt).float()
+        a = None if alpha is None else alpha.to(dt).float()
+        w = self.weight.to(dt)
+        if virtual:
+            return chw.conv_concat(xs, w, b, a)
+        return chw.conv(torch.cat(xs, dim=1), w, b, a, self.stride)
 
 
 class PReLU(nn.Module):
@@ -179,6 +199,26 @@ class CAB(nn.Module):
             return chw.cab(dict(self.named_parameters()), '', x,
                            inplace=inplace)
         return self.CA(self.body(x)) + x
+
+
+class ShiftCAB(CAB):
+    """``Shift_CAB`` (``gshift_denoise1.py:157-186``): the temporal
+    half-channel shift with boundary patch, then a plain CAB, with the
+    residual to the *shifted* input.  The shift is plain torch on both paths
+    (XLA glue on the JAX fused path too); with ``fused`` the CAB runs on
+    ``ops.chw.cab`` and writes over the fresh shifted tensor."""
+
+    def __init__(self, n_feat: int, kernel_size: int = 3, reduction: int = 4,
+                 *, reverse: bool = False, fused: bool = False):
+        super().__init__(n_feat, kernel_size, reduction, fused=fused)
+        self.reverse = reverse
+
+    def forward(self, x, inplace: bool = False):
+        """x is never written; ``inplace`` is accepted for CAB's signature
+        and changes nothing."""
+        y = temporal_channel_shift(x, reverse=self.reverse,
+                                   boundary_patch=True)
+        return super().forward(y, inplace=True)
 
 
 def naf_body(n: int, *, kernel_size: int, reduction: int, c_in: int = 0,

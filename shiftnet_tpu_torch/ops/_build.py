@@ -40,6 +40,8 @@ SIGNATURES = {
                          _P],
     'shiftnet_naf_back': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           ctypes.c_longlong, _P],
+    'shiftnet_conv_cat': [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,5 +1,5 @@
-"""The plain-CAB, conv and SkipUpSample CUDA kernels, their plain versions,
-and the TFR U-Net composed from them.
+"""The plain-CAB, conv, concat-conv and SkipUpSample CUDA kernels, their
+plain versions, and the TFR U-Net composed from them.
 
 Counterpart of ``shiftnet_tpu/ops/chw.py``.  The JAX module runs these ops
 on a packed ``ChwTensor`` layout that exists for the TPU's tiling rules; here
@@ -12,7 +12,7 @@ Dispatch, the same for every public op:
 - a CPU tensor runs the op's plain PyTorch version (``*_plain``);
 - any other device raises.
 
-``LAUNCHES`` counts kernel launches per op, this module's four and the
+``LAUNCHES`` counts kernel launches per op, this module's five and the
 shift-block kernels of ``ops/naf_chw``, so a run can show that it went
 through the kernels.  Conv weights come in the activation type (the caller
 casts the float32 parameters, as flax's ``dtype=`` does); PReLU slopes and
@@ -27,7 +27,8 @@ from shiftnet_tpu_torch.ops import _build
 from shiftnet_tpu_torch.ops.resize import bilinear_up2x
 
 LAUNCHES = {'cab_front': 0, 'cab_back': 0, 'conv': 0, 'up_skip': 0,
-            'shift_round': 0, 'naf_gate': 0, 'naf_rep': 0, 'naf_back': 0}
+            'shift_round': 0, 'naf_gate': 0, 'naf_rep': 0, 'naf_back': 0,
+            'conv_cat': 0}
 
 # Shared memory a block may use on Hopper (227 KB).
 SMEM_BYTES = 232448
@@ -220,6 +221,60 @@ def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
         None if alpha is None else alpha.data_ptr(),
         out.data_ptr(), t, cin, cout, h, wd, k, stride, _stream()), 'conv')
     LAUNCHES['conv'] += 1
+    return out
+
+
+# -- I: conv_cat ---------------------------------------------------------------
+
+def conv_concat_plain(xs, w, bias, alpha):
+    ws = w.float().chunk(len(xs), dim=1)
+    y = sum(F.conv2d(x.float(), wi, padding=1) for x, wi in zip(xs, ws))
+    if bias is not None:
+        y = y + bias[:, None, None]
+    if alpha is not None:
+        y = F.prelu(y, alpha)
+    return y.to(xs[0].dtype)
+
+
+def conv_concat(xs: list[torch.Tensor], w: torch.Tensor,
+                bias: torch.Tensor | None,
+                alpha: torch.Tensor | None) -> torch.Tensor:
+    """conv3x3(cat(xs, dim=1), w) + bias, then PReLU, without the concat:
+    the sum of per-input convs, accumulated in float32, with the float32
+    bias and slope applied before the single cast
+    (``shiftnet_tpu/ops/chw.py:conv_concat_chw``).  Stride 1.
+
+    xs: 2 or 3 tensors (T, Cin, H, W) of one shape and type; w: the
+    (Cout, n_in * Cin, 3, 3) weight of the conv over the concat, in that
+    type; bias: (Cout,) float32."""
+    if not _on_cuda(xs[0]):
+        return conv_concat_plain(xs, w, bias, alpha)
+    x = xs[0]
+    if len(xs) not in (2, 3):
+        raise ValueError(f'conv_cat: {len(xs)} inputs; takes 2 or 3')
+    if any(v.dtype != x.dtype for v in (*xs, w)):
+        raise ValueError('conv_cat: inputs and weight must share one type')
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f'conv_cat: dtype {x.dtype} not supported')
+    t, cin, h, wd = x.shape
+    cout = w.shape[0]
+    if (any(v.shape != x.shape for v in xs)
+            or w.shape != (cout, len(xs) * cin, 3, 3)):
+        raise ValueError(f'conv_cat: inputs {[tuple(v.shape) for v in xs]}, '
+                         f'weight {tuple(w.shape)}: needs one input shape and '
+                         'a 3x3 weight over their concat')
+    if bias is not None and bias.shape != (cout,):
+        raise ValueError(f'conv_cat: bias {tuple(bias.shape)} for Cout={cout}')
+    code = _check('conv_cat', x, *xs[1:], w, f32=(bias, alpha))
+    out = torch.empty((t, cout, h, wd), device=x.device, dtype=x.dtype)
+    ptrs = [v.data_ptr() for v in xs] + [None] * (3 - len(xs))
+    lib = _build.library()
+    _build.check(lib.shiftnet_conv_cat(
+        code, *ptrs, len(xs), w.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if alpha is None else alpha.data_ptr(),
+        out.data_ptr(), t, cin, cout, h, wd, _stream()), 'conv_cat')
+    LAUNCHES['conv_cat'] += 1
     return out
 
 

@@ -1,17 +1,21 @@
-"""Where the time of one deblur_plus window goes, on the GPU.
+"""Where the time and the memory of one window go, on the GPU.
 
   python -m shiftnet_tpu_torch.tools.profile_forward \
-      [--config {fused_chw,fused_tfr,plain} ...]
+      [--variant {deblur_plus,denoise_plus}] \
+      [--config {fused_chw,conv_concat,fused_tfr,plain} ...]
 
 For each configuration given (default ``fused_chw``, the Evaluator's: every
-kernel of the port; ``fused_tfr``: the TFR U-Nets' kernels only; ``plain``:
-none), on seeded weights and a seeded 40x720x1280 bf16 window (the
-``bench.py`` protocol), runs the port's ``Evaluator.forward_window`` once to
-warm up, then:
+kernel of the port but conv_cat; ``conv_concat``: also conv_cat at rconcat
+and conv_hr0; ``fused_tfr``: the TFR U-Nets' kernels only; ``plain``: none),
+on seeded weights and a seeded window in the variant's default type
+(deblur_plus: 40x720x1280 bf16, the ``bench.py`` protocol; denoise_plus:
+16x480x848 float32 at sigma 10/255, the ``bench_denoise.py`` protocol), runs
+the port's ``Evaluator.forward_window`` once to warm up, then:
 
 1. once with CUDA events around every stage of the model (the top-level
-   modules of ``GShiftNet`` and of its ``Encoder2``), printing each stage's
-   device time;
+   modules of ``GShiftNet`` and of its ``Encoder2``, the ShiftCABs
+   included), printing each stage's device time and the peak device memory
+   from the end of the stage before to the end of this one;
 2. once under ``torch.profiler``, printing the wall time, the device-busy
    share of it (the union of kernel intervals), the device time of the
    port's kernels (``ops/chw``, ``ops/naf_chw``) against everything else,
@@ -32,22 +36,26 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
+from shiftnet_tpu_torch.eval.runner import (CONFIG_OVERRIDES, Evaluator,
+                                            configuration)
 from shiftnet_tpu_torch.models import build_model, init_state
 
 OUR_KERNELS = ('cab_front_kernel', 'cab_back_kernel', 'conv_kernel',
                'up_skip_kernel', 'shift_round_kernel', 'naf_gate_kernel',
-               'naf_rep_kernel', 'naf_back_kernel')
-WINDOW = (40, 720, 1280, 3)
+               'naf_rep_kernel', 'naf_back_kernel', 'conv_cat_kernel')
+WINDOWS = {'deblur_plus': ((40, 720, 1280, 3), None),
+           'denoise_plus': ((16, 480, 848, 3), 10.0 / 255.0)}
 TOP = 15
 
 
-def stage_times(ev: Evaluator, clip: np.ndarray) -> dict[str, float]:
-    """Device ms per stage, from CUDA events recorded by forward hooks.
-    Repeated stages (orb1..orb5, the blocks of one Encoder2 level such as
-    decoder_level1, decoder_level1_1, decoder_level1_2) are summed under one
-    name."""
-    marks: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+def stage_times(ev: Evaluator, clip: np.ndarray, sigma: float | None
+                ) -> tuple[dict[str, float], dict[str, int]]:
+    """Device ms per stage, from CUDA events recorded by forward hooks,
+    and the peak allocated bytes of each stage (from the end of the stage
+    before).  Repeated stages (orb1..orb5, the blocks of one Encoder2 level
+    such as decoder_level1, decoder_level1_1, decoder_level1_2) are summed
+    under one name, their peaks maximized."""
+    marks: list[tuple[str, torch.cuda.Event, torch.cuda.Event, int]] = []
     open_ev: dict[str, torch.cuda.Event] = {}
     hooks = []
     model = ev.model
@@ -62,40 +70,49 @@ def stage_times(ev: Evaluator, clip: np.ndarray) -> dict[str, float]:
         def post(_m, _a, _o, name=name):
             e = torch.cuda.Event(enable_timing=True)
             e.record()
-            marks.append((name, open_ev.pop(name), e))
+            marks.append((name, open_ev.pop(name), e,
+                          torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
         hooks += [mod.register_forward_pre_hook(pre),
                   mod.register_forward_hook(post)]
     try:
-        ev.forward_window(clip)
+        torch.cuda.reset_peak_memory_stats()
+        ev.forward_window(clip, sigma)
         torch.cuda.synchronize()
     finally:
         for h in hooks:
             h.remove()
-    out: dict[str, float] = defaultdict(float)
-    for name, a, b in marks:
-        out[re.sub(r'^(r?orb)\d+$', r'\1*', re.sub(r'_\d+$', '', name))] += \
-            a.elapsed_time(b)
-    return dict(out)
+    ms: dict[str, float] = defaultdict(float)
+    peak: dict[str, int] = defaultdict(int)
+    for name, a, b, p in marks:
+        key = re.sub(r'^(r?orb)\d+$', r'\1*', re.sub(r'_\d+$', '', name))
+        ms[key] += a.elapsed_time(b)
+        peak[key] = max(peak[key], p)
+    return dict(ms), dict(peak)
 
 
-def profile_config(name: str, state, clip: np.ndarray,
+def profile_config(variant: str, overrides: dict, state,
+                   clip: np.ndarray, sigma: float | None,
                    result_path: str) -> None:
-    print(f'== {name} ==', flush=True)
-    ev = Evaluator('deblur_plus', state, device='cuda',
-                   overrides=CONFIG_OVERRIDES[name], result_path=result_path)
-    ev.forward_window(clip)
+    ev = Evaluator(variant, state, device='cuda', overrides=overrides,
+                   result_path=result_path)
+    print(f'== {variant} {configuration(ev.model.cfg)} {tuple(clip.shape)} '
+          f'{ev.dtype} ==', flush=True)
+    ev.forward_window(clip, sigma)
     torch.cuda.synchronize()
 
-    stages = stage_times(ev, clip)
+    stages, peaks = stage_times(ev, clip, sigma)
     total = sum(stages.values())
-    print(f'stages (device ms, CUDA events; {total:.1f} ms in all):')
+    print(f'stages (device ms, CUDA events; {total:.1f} ms in all; peak '
+          f'{max(peaks.values()) / 1e9:.3f} GB):')
     for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f'  {ms:10.1f} ms {100 * ms / total:5.1f} %  {stage}')
+        print(f'  {ms:10.1f} ms {100 * ms / total:5.1f} %  peak '
+              f'{peaks[stage] / 1e9:7.3f} GB  {stage}')
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ev.forward_window(clip)
+        ev.forward_window(clip, sigma)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -126,6 +143,7 @@ def profile_config(name: str, state, clip: np.ndarray,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument('--variant', choices=list(WINDOWS), default='deblur_plus')
     ap.add_argument('--config', nargs='+', choices=list(CONFIG_OVERRIDES),
                     default=['fused_chw'],
                     help='configurations to profile, in this order')
@@ -137,10 +155,12 @@ def main(argv=None):
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
-    state = init_state(build_model('deblur_plus'), seed=0)
-    clip = np.random.default_rng(1).uniform(0, 1, WINDOW).astype(np.float32)
+    state = init_state(build_model(args.variant), seed=0)
+    window, sigma = WINDOWS[args.variant]
+    clip = np.random.default_rng(1).uniform(0, 1, window).astype(np.float32)
     for name in args.config:
-        profile_config(name, state, clip, args.result_path)
+        profile_config(args.variant, CONFIG_OVERRIDES[name], state, clip,
+                       sigma, args.result_path)
         torch.cuda.empty_cache()
 
 

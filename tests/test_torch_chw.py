@@ -129,6 +129,33 @@ def test_conv_plain_matches_xla_twin(k, stride, bias, prelu):
     assert norm_err(got[:, :, :ho, :wo].numpy(), want[:, :, :ho, :wo]) < TOL
 
 
+@pytest.mark.parametrize('n_in', [2, 3])
+@pytest.mark.parametrize('bias,prelu', [(False, False), (True, False),
+                                        (False, True), (True, True)])
+def test_conv_concat_plain_matches_xla_twin_and_cat_conv(n_in, bias, prelu):
+    t, cin, cout, h, w = 2, 6, 10, 16, 24
+    xs = [rand((t, cin, h, w), 20 + j) for j in range(n_in)]
+    ws = [(rand((cout, cin, 3, 3), 30 + j) / np.sqrt(9 * cin * n_in)).astype(
+        np.float32) for j in range(n_in)]
+    b = 0.1 * rand((cout,), 40) if bias else None
+    a = np.array([0.3], np.float32) if prelu else None
+    tb = None if b is None else torch.from_numpy(b)
+    ta = None if a is None else torch.from_numpy(a)
+    chw.reset_launches()
+    wcat = torch.from_numpy(np.concatenate(ws, axis=1))
+    got = chw.conv_concat([torch.from_numpy(x) for x in xs], wcat, tb, ta)
+    assert chw.LAUNCHES['conv_cat'] == 0  # CPU tensors: the plain version
+    twin = chw_xla.conv_concat_chw_xla(
+        [jchw.from_nhwc(jnp.asarray(to_nhwc(x)), padr=4, pf=2) for x in xs],
+        [jnp.asarray(np.transpose(k, (2, 3, 1, 0))) for k in ws],
+        None if b is None else jnp.asarray(b),
+        None if a is None else jnp.asarray(a))
+    assert norm_err(got.numpy(), to_nchw(jchw.to_nhwc(twin))) < TOL
+    cat = chw.conv(torch.from_numpy(np.concatenate(xs, axis=1)), wcat, tb,
+                   ta, 1)
+    assert norm_err(got.numpy(), cat.numpy()) < TOL
+
+
 def test_up_skip_plain_matches_xla_twin_and_flax():
     t, cin, cout, h, w = 2, 12, 8, 8, 12
     x = rand((t, cin, h, w), 8)
@@ -183,6 +210,7 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
     s, sums = chw.cab_front(x, w, torch.tensor([0.25]), w)
     chw.cab_back(x, s, torch.sigmoid(sums))
     chw.conv(x, w, None, None, 2)
+    chw.conv_concat([x, x], torch.cat([w, w], 1), None, torch.tensor([0.25]))
     chw.up_skip(x, torch.from_numpy(rand((8, 8, 1, 1), 13)),
                 torch.from_numpy(rand((1, 8, 8, 12), 14)))
     assert set(chw.LAUNCHES.values()) == {0}

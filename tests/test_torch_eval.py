@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from shiftnet_tpu.data.video_dataset import _imread as jax_imread
 from shiftnet_tpu.eval import metrics as jmetrics
 from shiftnet_tpu.eval import registry as jregistry
 from shiftnet_tpu.eval import window as jwindow
@@ -24,7 +25,7 @@ from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
 from shiftnet_tpu_torch.eval import metrics, window
 from shiftnet_tpu_torch.eval.runner import (CONFIG_OVERRIDES, METRICS,
                                             WINDOW_BYTES_PER_PX, Evaluator,
-                                            configuration)
+                                            _imread, configuration)
 from shiftnet_tpu_torch.models import build_model, init_state
 
 REPO = Path(__file__).resolve().parents[1]
@@ -85,8 +86,8 @@ def test_evaluator_defaults_to_fused_chw(tiny, tmp_path):
     state, _ = tiny
     ev = evaluator(state, tmp_path)
     assert ev.model.cfg.fused_chw and ev.dtype == torch.float32
-    assert ev.bytes_per_px == WINDOW_BYTES_PER_PX[('fused_chw',
-                                                   torch.float32)]
+    assert ev.bytes_per_px == WINDOW_BYTES_PER_PX[
+        ('deblur_plus', 'fused_chw', torch.float32)]
     for name, overrides in CONFIG_OVERRIDES.items():
         cfg = build_model('deblur_plus', **TINY, **overrides).cfg
         assert configuration(cfg) == name
@@ -199,6 +200,22 @@ def test_port_window_plans_match_jax(n_frames, one_len):
         0, 255, (3, h + 3, w + 2, 3)).astype(np.uint8)
     np.testing.assert_array_equal(window.mod_crop(img, 4),
                                   jwindow.mod_crop(img, 4))
+
+
+@pytest.mark.parametrize('name,shape', [('rgb.png', (20, 30, 3)),
+                                        ('grey.png', (20, 30)),
+                                        ('rgba.png', (20, 30, 4)),
+                                        ('rgb.jpg', (20, 30, 3))])
+def test_port_imread_matches_jax(tmp_path, name, shape):
+    """The port reads frames with Pillow (the GPU machine has no imageio);
+    the JAX package with imageio.  Both give the same RGB uint8 pixels."""
+    imageio = pytest.importorskip('imageio.v2')
+    img = np.random.default_rng(17).integers(0, 255, shape).astype(np.uint8)
+    path = tmp_path / name
+    imageio.imwrite(path, img)
+    got = _imread(str(path))
+    assert got.dtype == np.uint8 and got.shape == (20, 30, 3)
+    np.testing.assert_array_equal(got, jax_imread(str(path)))
 
 
 def test_port_metrics_match_jax():

@@ -132,6 +132,65 @@ def test_conv_encoder2_shapes_match_plain(cuda, dtype, cin, cout, k, stride,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_conv_with_four_input_channels_matches_plain(cuda, dtype):
+    """denoise feat_extract: RGB + noise map, a partial 8-channel chunk
+    that the kernel pads with zeros."""
+    g = torch.Generator().manual_seed(4)
+    x = randn(g, 3, 4, 19, 37).to(cuda, dtype)
+    wt = randn(g, 24, 4, 3, 3, scale=36 ** -0.5).to(cuda, dtype)
+    b = randn(g, 24, scale=0.1).to(cuda)
+    assert norm_err(chw.conv(x, wt, b, None, 1),
+                    chw.conv_plain(x, wt, b, None, 1)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n_in,bias,prelu', [(2, True, False),
+                                             (3, True, False),
+                                             (3, False, True)])
+@pytest.mark.parametrize('h,w', [(19, 37), (33, 20)])  # ragged edge tiles
+def test_conv_cat_matches_plain(cuda, dtype, n_in, bias, prelu, h, w):
+    """rconcat (3 inputs, bias or PReLU) and conv_hr0 (2 inputs, bias);
+    Cin = 20 leaves a partial 8-channel chunk in each input."""
+    g = torch.Generator().manual_seed(n_in * h)
+    cin, cout = 20, 13
+    xs = [randn(g, 2, cin, h, w).to(cuda, dtype) for _ in range(n_in)]
+    wt = randn(g, cout, n_in * cin, 3, 3, scale=(9 * cin * n_in) ** -0.5).to(
+        cuda, dtype)
+    b = randn(g, cout, scale=0.1).to(cuda) if bias else None
+    a = torch.tensor([0.3], device=cuda) if prelu else None
+    chw.reset_launches()
+    got = chw.conv_concat(xs, wt, b, a)
+    assert chw.LAUNCHES['conv_cat'] == 1
+    want = chw.conv_concat_plain(xs, wt, b, a)
+    assert got.shape == (2, cout, h, w) and got.dtype == dtype
+    assert norm_err(got, want) < TOL[dtype]
+    if dtype == torch.float32:  # and the conv over the concat
+        cat = chw.conv_plain(torch.cat(xs, 1), wt, b, a, 1)
+        assert norm_err(got, cat) < TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_conv_cat_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 6, 6, device=cuda)
+    w = torch.zeros(8, 16, 3, 3, device=cuda)
+    with pytest.raises(ValueError):  # K = 5
+        chw.conv_concat([x, x], torch.zeros(8, 16, 5, 5, device=cuda),
+                        None, None)
+    with pytest.raises(ValueError):  # mismatched input shapes
+        chw.conv_concat([x, x[:, :, :4]], w, None, None)
+    with pytest.raises(ValueError):  # float16
+        chw.conv_concat([x.half(), x.half()], w.half(), None, None)
+    with pytest.raises(ValueError):  # one input
+        chw.conv_concat([x], w[:, :8].contiguous(), None, None)
+    with pytest.raises(ValueError):  # a weight that is not over the concat
+        chw.conv_concat([x, x], w[:, :8].contiguous(), None, None)
+    with pytest.raises(ValueError):  # a bias that is not one per Cout
+        chw.conv_concat([x, x], w, torch.zeros(4, device=cuda), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_up_skip_at_encoder2_width_matches_plain(cuda, dtype):
     g = torch.Generator().manual_seed(80)
     x = randn(g, 2, 80, 11, 20).to(cuda, dtype)
