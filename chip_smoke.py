@@ -10,8 +10,10 @@ Phases, each of which must pass:
 2. build: compile the nine CUDA kernels from ``shiftnet_tpu_torch/csrc``
    into one library (one nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
-   at the shapes of the 720p deblur_plus window (T = 4) and, for conv_cat,
-   also the 480x848 denoise window, in float32 (TF32 off) and bfloat16,
+   at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
+   the 480x848 denoise window, and at the small variants' widths (the
+   depthwise naf_rep at n = 64 on its own row), in float32 (TF32 off) and
+   bfloat16,
    with median times over 20 runs, the least time the card could take for
    the same work (``bound_ms``) and, where one PyTorch call computes the
    same function, that call's time (``library_ms``).
@@ -30,6 +32,12 @@ Phases, each of which must pass:
    which must take the quadrant plan; the bf16 window's drift from the
    float32 one (information, not a check); the whole model against the
    all-plain model on a 5x480x848 window, with conv_concat off and on.
+6. small: the default ``Evaluator('deblur_small')`` (bf16) on a seeded
+   40x720x1280 window and ``Evaluator('denoise_small')`` (float32) at sigma
+   10/255 on a 16x480x848 one, each on the full-window plan with its launch
+   counts, peak and fps, and once with ``conv_concat``; a DAVIS-width
+   16x480x852 denoise_small window, which must take the quadrant plan; the
+   whole model of each against the all-plain model on a 5-frame window.
 
 The line before the last is a JSON object with each kernel's launches on
 every driven path, its error, its times and its bound; the last line is
@@ -86,12 +94,22 @@ TFR_PATH_LAUNCHES = {'cab_front': 160, 'cab_back': 160, 'conv': 20,
 # denoise_plus on the fused_chw path: Encoder2's 13 CABs are the deblur 11
 # and its 4 ShiftCABs (levels 0 and 1) in place of the 2 level-1 CABs.
 DENOISE_LAUNCHES = dict(MAIN_PATH_LAUNCHES, cab_front=174, cab_back=174)
+# deblur_small and denoise_small on the fused_chw path: 6 TFR U-Nets x (16
+# CABs, 2 down convs, 2 up_skips); feat_extract's CAB and Encoder2's concat,
+# skip_attn1, skip_conv and out_conv; feat_extract, conv_trans, down01,
+# down12, upsample_conv, conv_hr0, rconcat and conv_last; up21; 12 shift
+# blocks x 4 rounds x (1 shift, CAB2 + CAB1 x 3 kernels).  Every naf_rep
+# launch here is the depthwise form.
+SMALL_LAUNCHES = {'cab_front': 101, 'cab_back': 101, 'conv': 20,
+                  'up_skip': 13, 'shift_round': 48, 'naf_gate': 96,
+                  'naf_rep': 96, 'naf_back': 96, 'conv_cat': 0}
 
 
-def with_conv_concat(launches):
-    """The conv_concat configuration: rconcat and conv_hr0 go from conv to
-    one conv_cat launch each."""
-    return dict(launches, conv=launches['conv'] - 2, conv_cat=2)
+def with_conv_concat(launches, folded=2):
+    """The conv_concat configuration: the ``folded`` convs over a concat
+    (rconcat, and conv_hr0 except under deblur_small's add-fuse) go from
+    conv to one conv_cat launch each."""
+    return dict(launches, conv=launches['conv'] - folded, conv_cat=folded)
 
 
 # The denoise protocol (the JAX package's tools/bench_denoise.py): 480x848,
@@ -103,26 +121,42 @@ DN_T_DAVIS = 50 + 2 * HALO
 DN_W_DAVIS = 852
 SIGMA = 10.0 / 255.0
 
+# Each row of the kernels line: (source, the TPU kernel it replaces, another
+# it also replaces, the launch counter, the path whose launches it reports).
+# The depthwise naf_rep is a form of its own of the naf_rep kernel (one
+# template of csrc/naf_rep.cu), counted under naf_rep: its row reports the
+# small variants' naf_rep launches, and the grouped row the others'.
+SMALL_PATHS = ('deblur_small', 'denoise_small')
 KERNELS = {
     'cab_front': ('shiftnet_tpu_torch/csrc/cab_front.cu',
                   'shiftnet_tpu/ops/chw.py:289',
-                  'shiftnet_tpu/ops/chw.py:654'),
+                  'shiftnet_tpu/ops/chw.py:654', 'cab_front', 'fused_chw'),
     'cab_back': ('shiftnet_tpu_torch/csrc/cab_back.cu',
-                 'shiftnet_tpu/ops/chw.py:378', None),
+                 'shiftnet_tpu/ops/chw.py:378', None, 'cab_back',
+                 'fused_chw'),
     'conv': ('shiftnet_tpu_torch/csrc/conv.cu',
-             'shiftnet_tpu/ops/chw.py:865', None),
+             'shiftnet_tpu/ops/chw.py:865', None, 'conv', 'fused_chw'),
     'up_skip': ('shiftnet_tpu_torch/csrc/up_skip.cu',
-                'shiftnet_tpu/ops/chw.py:1195', None),
+                'shiftnet_tpu/ops/chw.py:1195', None, 'up_skip',
+                'fused_chw'),
     'shift_round': ('shiftnet_tpu_torch/csrc/shift_round.cu',
-                    'shiftnet_tpu/ops/naf_chw.py:265', None),
+                    'shiftnet_tpu/ops/naf_chw.py:265', None, 'shift_round',
+                    'fused_chw'),
     'naf_gate': ('shiftnet_tpu_torch/csrc/naf_gate.cu',
-                 'shiftnet_tpu/ops/naf_chw.py:685', None),
+                 'shiftnet_tpu/ops/naf_chw.py:685', None, 'naf_gate',
+                 'fused_chw'),
     'naf_rep': ('shiftnet_tpu_torch/csrc/naf_rep.cu',
-                'shiftnet_tpu/ops/naf_chw.py:909', None),
+                'shiftnet_tpu/ops/naf_chw.py:909', None, 'naf_rep',
+                'fused_chw'),
+    'naf_rep_depthwise': ('shiftnet_tpu_torch/csrc/naf_rep.cu',
+                          'shiftnet_tpu/ops/naf_chw.py:909', None, 'naf_rep',
+                          'deblur_small'),
     'naf_back': ('shiftnet_tpu_torch/csrc/naf_back.cu',
-                 'shiftnet_tpu/ops/naf_chw.py:1019', None),
+                 'shiftnet_tpu/ops/naf_chw.py:1019', None, 'naf_back',
+                 'fused_chw'),
     'conv_cat': ('shiftnet_tpu_torch/csrc/conv_cat.cu',
-                 'shiftnet_tpu/ops/chw.py:906', None),
+                 'shiftnet_tpu/ops/chw.py:906', None, 'conv_cat',
+                 'conv_concat'),
 }
 
 
@@ -233,11 +267,13 @@ def _cases():
         return torch.from_numpy(rng.uniform(0, 1, shape).astype(
             np.float32)).to('cuda', dtype)
 
-    def naf_prep(rng, n, cab2, dtype, opts=False):
+    def naf_prep(rng, n, cab2, dtype, opts=False, depthwise=False):
         """prep_naf of a seeded CAB2 / CAB1 whose LayerNorm is not the
         identity (LN of a zero pixel is then nonzero, so the halo masks
-        matter) and, with ``opts``, a nonzero last bias."""
-        kw = dict(kernel_size=5, reduction=4, mid_ca=opts, last_bias=opts)
+        matter) and, with ``opts``, a nonzero last bias; ``depthwise``: the
+        small variants' depthwise RepConv."""
+        kw = dict(kernel_size=5, reduction=4, mid_ca=opts, last_bias=opts,
+                  repconv_depthwise=depthwise)
         mod = (layers.CAB2(n, n // 2, **kw) if cab2
                else layers.CAB1(n, **kw))
         state = init_state(mod, int(rng.integers(1 << 30)))
@@ -399,6 +435,99 @@ def _cases():
                           f'{" cag" if opts else ""}', rep))
             cases.append(('naf_back', f'n={n} {h}x{w}'
                           f'{" b7" if opts else ""}', back))
+    cases += _small_cases(arr, wgt, unit, naf_prep)
+    return cases
+
+
+def _small_cases(arr, wgt, unit, naf_prep):
+    """The small variants' shapes at 720p (T = 4): the depthwise naf_rep at
+    n = 64 (its own row; with the mid-CALayer scale of denoise_small too),
+    then the other kernels at the widths these variants add (TFR widths 14,
+    18 and 22, Encoder2 width 64, add_c 32)."""
+    import torch
+    from shiftnet_tpu_torch.ops import chw, naf_chw
+
+    cases = []
+    n, h, w = 64, H // 2, W // 2
+    for opts in (False, True):
+        def rep(rng, dt, opts=opts):
+            prep = naf_prep(rng, n, True, dt, depthwise=True)
+            g = arr(rng, (T_CHECK, n, h, w), dt)
+            cag = unit(rng, (T_CHECK, n), dt) if opts else None
+            return Case(lambda: naf_chw.naf_rep(g, cag, prep),
+                        lambda: naf_chw.naf_rep_plain(g, cag, prep),
+                        [g, cag, prep['rep'], prep['w4']],
+                        2 * T_CHECK * h * w * (25 * n + 2 * n * n))
+        cases.append(('naf_rep_depthwise',
+                      f'n={n} {h}x{w}{" cag" if opts else ""}', rep))
+
+    for c, hc, wc in ((14, H, W), (18, H // 2, W // 2), (64, h, w)):
+        def front(rng, dt, c=c, hc=hc, wc=wc):
+            x = arr(rng, (T_CHECK, c, hc, wc), dt)
+            w1, w2 = wgt(rng, (c, c, 3, 3), dt), wgt(rng, (c, c, 3, 3), dt)
+            alpha = torch.full((1,), 0.25, device='cuda')
+            return Case(lambda: chw.cab_front(x, w1, alpha, w2),
+                        lambda: chw.cab_front_plain(x, w1, alpha, w2),
+                        [x, w1, alpha, w2],
+                        2 * 2 * 9 * c * c * x[:, 0].numel())
+        cases.append(('cab_front', f'C={c} {hc}x{wc}', front))
+
+    for cin, cout, k, st, pre, hc, wc in (
+            (14, 64, 2, 2, True, H, W),             # down01
+            (64, 56, 3, 1, False, h, w),            # upsample_conv
+            (14, 14, 3, 1, False, H, W)):           # add-fuse conv_hr0
+        def cv(rng, dt, cin=cin, cout=cout, k=k, st=st, pre=pre, hc=hc,
+               wc=wc):
+            x = arr(rng, (T_CHECK, cin, hc, wc), dt)
+            wt = wgt(rng, (cout, cin, k, k), dt)
+            a = torch.full((1,), 0.25, device='cuda') if pre else None
+            n_out = T_CHECK * (hc // st) * (wc // st)
+            return Case(lambda: chw.conv(x, wt, None, a, st),
+                        lambda: chw.conv_plain(x, wt, None, a, st),
+                        [x, wt, a], 2 * k * k * cin * cout * n_out)
+        cases.append(('conv', f'{cin}->{cout} k{k} s{st}'
+                      f'{" prelu" if pre else ""} {hc}x{wc}', cv))
+
+    def up(rng, dt):
+        x = arr(rng, (T_CHECK, 18, H // 4, W // 4), dt)
+        w11 = wgt(rng, (14, 18, 1, 1), dt)
+        skip = arr(rng, (T_CHECK, 14, H // 2, W // 2), dt)
+        return Case(lambda: chw.up_skip(x, w11, skip),
+                    lambda: chw.up_skip_plain(x, w11, skip),
+                    [x, w11, skip], 2 * 18 * 14 * x[:, 0].numel())
+    cases.append(('up_skip', f'18->14 {H // 4}x{W // 4}->{h}x{w}', up))
+
+    def shift(rng, dt):
+        x = arr(rng, (T_CHECK, n, h, w), dt)
+        kw = dict(reverse=False, boundary_patch=False)
+        return Case(lambda: naf_chw.shift_round(x, 4, **kw),
+                    lambda: naf_chw.shift_round_plain(x, 4, **kw),
+                    [x], 0, exact=True)
+    cases.append(('shift_round', f'C={n} {h}x{w} forward no patch', shift))
+
+    def gate(rng, dt):
+        prep = naf_prep(rng, n, True, dt, depthwise=True)
+        y = arr(rng, (T_CHECK, n, h, w), dt)
+        hw = arr(rng, (T_CHECK, n // 2, h, w), dt)
+        used = [prep[k] for k in ('wg', 'c1', 'c2', 'dw0', 'dwc')]
+        px, cin = T_CHECK * h * w, n + n // 2
+        return Case(lambda: naf_chw.naf_gate(y, hw, prep),
+                    lambda: naf_chw.naf_gate_plain(y, hw, prep),
+                    [y, hw, *used],
+                    2 * px * (2 * n * cin + 9 * (cin - n) + 9 * 2 * n)
+                    + px * n)
+    cases.append(('naf_gate', f'CAB2 n={n} {h}x{w}', gate))
+
+    def back(rng, dt):
+        prep = naf_prep(rng, n, False, dt, opts=True, depthwise=True)
+        y = arr(rng, (T_CHECK, n, h, w), dt)
+        s = arr(rng, (T_CHECK, n, h, w), dt)
+        ca = unit(rng, (T_CHECK, n), dt)
+        return Case(lambda: naf_chw.naf_back(y, s, ca, prep),
+                    lambda: naf_chw.naf_back_plain(y, s, ca, prep),
+                    [y, s, ca, prep['w7'], prep['beta'], prep['b7']],
+                    2 * T_CHECK * h * w * n * n)
+    cases.append(('naf_back', f'n={n} {h}x{w} b7', back))
     return cases
 
 
@@ -592,6 +721,25 @@ def deblur_phase(card, logs):
     return {name: run[0] for name, run in runs.items()}
 
 
+def _davis_width(ev, variant, expected):
+    """A DAVIS-width 16x480x852 window: it must run as four finite quadrant
+    tiles, each launching what a window of the path launches."""
+    from shiftnet_tpu_torch.ops import chw
+    wide = _clip(DN_T, DN_H, DN_W_DAVIS, seed=5)
+    plan = ev.window_plan(wide.shape)
+    chw.reset_launches()
+    out = ev.forward_window(wide, SIGMA)
+    launches = dict(chw.LAUNCHES)
+    print(f'slice: {variant} DAVIS-width window {wide.shape} plan {plan}, '
+          f'launches {launches}', flush=True)
+    if (plan != 'quadrant'
+            or out.shape != (DN_T - 2 * HALO, DN_H, DN_W_DAVIS, 3)
+            or not np.isfinite(out).all()
+            or launches != {k: 4 * v for k, v in expected.items()}):
+        raise AssertionError(f'the {variant} DAVIS-width window did not run '
+                             'as four finite quadrant tiles')
+
+
 def denoise_phase(card, logs):
     """denoise_plus through the port's default Evaluator (float32,
     ``fused_chw``, conv_concat off) on the bench_denoise window, a
@@ -602,7 +750,6 @@ def denoise_phase(card, logs):
     import torch
     from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
     from shiftnet_tpu_torch.models import build_model, init_state
-    from shiftnet_tpu_torch.ops import chw
 
     state = init_state(build_model('denoise_plus'), seed=0)
     clip = _clip(DN_T, DN_H, DN_W, seed=3)
@@ -625,20 +772,7 @@ def denoise_phase(card, logs):
                                     f'denoise_plus {name} DAVIS-length',
                                     card, 1, SIGMA)[:3]
         if name == 'fused_chw':
-            wide = _clip(DN_T, DN_H, DN_W_DAVIS, seed=5)
-            plan = ev.window_plan(wide.shape)
-            chw.reset_launches()
-            out = ev.forward_window(wide, SIGMA)
-            launches = dict(chw.LAUNCHES)
-            print(f'slice: denoise_plus DAVIS-width window {wide.shape} plan '
-                  f'{plan}, launches {launches}', flush=True)
-            if (plan != 'quadrant' or out.shape != (DN_T - 2 * HALO, DN_H,
-                                                    DN_W_DAVIS, 3)
-                    or not np.isfinite(out).all()
-                    or launches != {k: 4 * v for k, v in expected.items()}):
-                raise AssertionError('the DAVIS-width window did not run as '
-                                     'four finite quadrant tiles')
-            del out
+            _davis_width(ev, 'denoise_plus', expected)
         del ev
         torch.cuda.empty_cache()
     _pair(f'denoise_plus {DN_T}x{DN_H}x{DN_W} float32', runs['fused_chw'],
@@ -665,6 +799,66 @@ def denoise_phase(card, logs):
     return launches
 
 
+def small_phase(card, logs):
+    """deblur_small (bf16, 40x720x1280) and denoise_small (float32,
+    16x480x848, sigma 10/255) through the port's default Evaluator
+    (``fused_chw``, conv_concat off) on the full-window plan, and once with
+    conv_concat; a DAVIS-width denoise_small window on the quadrant plan;
+    then each whole model against the all-plain model on a 5-frame window.
+    Returns the launches of each path."""
+    import torch
+    from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
+    from shiftnet_tpu_torch.models import build_model, init_state
+
+    launches = {}
+    for variant, (t, h, w), sigma, dtype, folded in (
+            ('deblur_small', (ONE_LEN + 2 * HALO, H, W), None,
+             torch.bfloat16, 1),  # add-fuse: conv_hr0 reads no concat
+            ('denoise_small', (DN_T, DN_H, DN_W), SIGMA, torch.float32, 2)):
+        state = init_state(build_model(variant), seed=0)
+        clip = _clip(t, h, w, seed=7)
+        runs = {}
+        for name, overrides, expected, timed in (
+                ('fused_chw', None, SMALL_LAUNCHES, 3),  # the default
+                ('conv_concat', CONFIG_OVERRIDES['conv_concat'],
+                 with_conv_concat(SMALL_LAUNCHES, folded), 1)):
+            ev = Evaluator(variant, state, device='cuda',
+                           overrides=overrides, result_path=logs)
+            cfg = ev.model.cfg
+            if name == 'fused_chw' and not (cfg.fused_chw
+                                            and not cfg.conv_concat
+                                            and ev.dtype == dtype):
+                raise AssertionError(f'the default {variant} Evaluator is '
+                                     f'not {dtype} fused_chw with '
+                                     'conv_concat off')
+            if ev.window_plan(clip.shape) != 'full':
+                raise AssertionError(f'{variant}: the {clip.shape} window '
+                                     'is not on the full-window plan')
+            runs[name] = _drive(ev, clip, expected, f'{variant} {name}',
+                                card, timed, sigma)[:3]
+            if name == 'fused_chw' and sigma is not None:
+                _davis_width(ev, variant, expected)
+            del ev
+            torch.cuda.empty_cache()
+        _pair(f'{variant} {t}x{h}x{w} {str(dtype).split(".")[-1]}',
+              runs['fused_chw'], runs['conv_concat'], card)
+        launches[variant] = runs['fused_chw'][0]
+        launches[f'{variant}_conv_concat'] = runs['conv_concat'][0]
+        del runs
+        _whole_model(variant, state, _clip(2 * HALO + 1, h, w, seed=8), sigma,
+                     ('fused_chw',), ('float32',), logs)
+    return launches
+
+
+def _form_launches(name, path, n):
+    """naf_rep's launches on a path, split by form: the depthwise row
+    counts the small variants' paths, the grouped row the others."""
+    if name.startswith('naf_rep'):
+        small = path.startswith(SMALL_PATHS)
+        return n if small == (name == 'naf_rep_depthwise') else 0
+    return n
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -673,21 +867,19 @@ def main():
     with tempfile.TemporaryDirectory() as logs:
         launches = deblur_phase(card, logs)
         launches.update(denoise_phase(card, logs))
+        launches.update(small_phase(card, logs))
     kernels = []
-    for name, (src, repl, also) in KERNELS.items():
+    for name, (src, repl, also, counter, main_path) in KERNELS.items():
         r = rec[name]
-        # ``launches``: the main path that carries the kernel, the default
-        # deblur window for the first eight and the conv_concat window for
-        # conv_cat; the other keys give every driven path.
-        main_path = 'conv_concat' if name == 'conv_cat' else 'fused_chw'
+        # ``launches``: the main path that carries the kernel (the default
+        # deblur_plus window for most, the conv_concat window for conv_cat,
+        # the deblur_small window for the depthwise naf_rep); the
+        # ``launches_<path>`` keys give every driven path.
         entry = {'name': name, 'route': 'cuda', 'source': src,
-                 'replaces': repl, 'launches': launches[main_path][name],
-                 'launches_fused_chw': launches['fused_chw'][name],
-                 'launches_fused_tfr': launches['fused_tfr'][name],
-                 'launches_conv_concat': launches['conv_concat'][name],
-                 'launches_denoise': launches['denoise'][name],
-                 'launches_denoise_conv_concat':
-                     launches['denoise_conv_concat'][name],
+                 'replaces': repl,
+                 'launches': launches[main_path][counter],
+                 **{f'launches_{path}': _form_launches(name, path, n[counter])
+                    for path, n in launches.items()},
                  'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                  'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
                  'bound_by': r['bound_by'], 'library_ms': r['library_ms']}

@@ -1,7 +1,7 @@
 // Kernel G, naf_rep: the middle of a CAB2 / CAB1 gated block,
 //
-//   [g * cag (denoise mid-CALayer scale)] -> RepConv (grouped 5x5 + grouped
-//   3x3 + identity, merged into one grouped 5x5) -> 1x1 expand n -> 2n ->
+//   [g * cag (denoise mid-CALayer scale)] -> RepConv (5x5 + 3x3 + identity,
+//   merged into one 5x5, grouped or depthwise) -> 1x1 expand n -> 2n ->
 //   SimpleGate2 s = e2[:n] * sigmoid(e2[n:]),
 //
 // plus per-block float32 channel sums of s (CALayer2 reads them).
@@ -10,12 +10,18 @@
 // the compute type, the RepConv output r is cast before the expand, and the
 // two SimpleGate2 factors are cast separately before their product.
 //
-// The RepConv stays grouped: output channel o reads the 8 input channels
-// 8 * (o / 8) .. + 7.  The TPU kernel densified it into a block-diagonal
-// (n, 25 n) matrix for its matrix unit, which costs 10x the multiply-adds
-// at n = 80; on the CUDA cores the grouped form is the cheaper one.  The
+// The RepConv comes in the two forms the models use, a template parameter
+// G (input channels per group):
+// - G = 8 (the big variants): output channel o reads the 8 input channels
+//   8 * (o / 8) .. + 7; weight laid out [n/8][8 in][25 taps][8 out];
+// - G = 1 (the small variants, depthwise): o reads channel o alone;
+//   weight laid out [n][25 taps].
+// Neither is densified.  The TPU kernel turned both into a block-diagonal
+// (n, 25 n) matrix for its matrix unit, which costs n / G times the
+// multiply-adds (10x at n = 80 grouped, 64x at n = 64 depthwise); on the
+// CUDA cores the grouped and depthwise forms are the cheaper ones.  The
 // host merges the branches in float32 and casts once (ops/naf_chw.py,
-// prep_naf) and lays the weight out as [n/8][8 in][25 taps][8 out].
+// prep_naf).
 //
 // One block covers one frame and a TH x TW tile.  Shared memory holds g
 // with a 2-pixel halo (zero outside the image: the reference conv
@@ -23,12 +29,15 @@
 // g's buffer.  n * ((TH+4)(TW+4) + TH TW) elements: at n = 80 and 16 x 16,
 // 104,960 B in bf16 and 209,920 B in float32.
 //
-// What bounds it: arithmetic, 25 * 8 * n + 2n * n multiply-adds per pixel
-// (28,800 at n = 80: 57.6 kFLOP) on the CUDA cores; its bytes, 320 B per
-// pixel in bf16, give 0.88 ms per 40-frame 360x640 call at 3.35 TB/s.
-// Each thread owns 8 output channels of 4 pixels for the 5x5 (one group:
-// the 8 channels share their inputs) and 8 + 8 channels (o and its gate
-// partner o + n) of 4 pixels for the expand, with 16-byte weight loads.
+// What bounds it: its bytes, g read and s written, 4n B per pixel in bf16
+// (320 B at n = 80, 0.88 ms per 40-frame 360x640 call at 3.35 TB/s; 256 B
+// at n = 64).  Its arithmetic, 25 G n + 2n n multiply-adds per pixel
+// (28,800 at n = 80 grouped, 9,792 at n = 64 depthwise), runs on the CUDA
+// cores, so in practice the expand's float32 FMAs bound it.  For the 5x5
+// each thread owns 8 output channels of 4 pixels (G = 8: one group, the 8
+// channels share their inputs, 16-byte weight loads) or 1 channel of 4
+// pixels (G = 1); for the expand, 8 + 8 channels (o and its gate partner
+// o + n) of 4 pixels, with 16-byte weight loads.
 #include "common.cuh"
 
 namespace shiftnet {
@@ -37,7 +46,7 @@ constexpr int kRepCob = 8;
 constexpr int kRepPx = 4;
 constexpr int kRepThreads = 256;
 
-template <typename T>
+template <typename T, int G>
 __global__ void naf_rep_kernel(const T* __restrict__ g,
                                const T* __restrict__ cag,
                                const float* __restrict__ rep,
@@ -70,9 +79,9 @@ __global__ void naf_rep_kernel(const T* __restrict__ g,
   }
   __syncthreads();
 
-  // Merged grouped 5x5: item = one group of 8 output channels, 4 pixels.
+  // Merged 5x5, grouped: item = one group of 8 output channels, 4 pixels.
   const int tchunk = TW / kRepPx;
-  {
+  if constexpr (G == 8) {
     const int items = (n / kRepCob) * TH * tchunk;
     for (int i = threadIdx.x; i < items; i += blockDim.x) {
       const int grp = i / (TH * tchunk);
@@ -113,6 +122,37 @@ __global__ void naf_rep_kernel(const T* __restrict__ g,
         for (int u = 0; u < kRepPx; ++u)
           rs[(size_t)(grp * kRepCob + j) * TT + r * TW + q0 + u] =
               from_f<T>(acc[j][u]);
+    }
+  } else {
+    // Depthwise: item = one channel, 4 pixels of a row.
+    static_assert(G == 1, "naf_rep: groups of 8 or depthwise");
+    const int items = n * TH * tchunk;
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int c = i / (TH * tchunk);
+      const int rem = i - c * TH * tchunk;
+      const int r = rem / tchunk;
+      const int q0 = (rem - r * tchunk) * kRepPx;
+      float acc[kRepPx];
+#pragma unroll
+      for (int u = 0; u < kRepPx; ++u) acc[u] = 0.f;
+      const float* wp = rep + (size_t)c * 25;
+      const T* sp = gs + (size_t)c * A2 + r * IW + q0;
+#pragma unroll
+      for (int ky = 0; ky < 5; ++ky) {
+        float v[kRepPx + 4];
+#pragma unroll
+        for (int k = 0; k < kRepPx + 4; ++k) v[k] = to_f(sp[ky * IW + k]);
+#pragma unroll
+        for (int kx = 0; kx < 5; ++kx) {
+          const float w = __ldg(wp + ky * 5 + kx);
+#pragma unroll
+          for (int u = 0; u < kRepPx; ++u)
+            acc[u] = fmaf(w, v[u + kx], acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRepPx; ++u)
+        rs[(size_t)c * TT + r * TW + q0 + u] = from_f<T>(acc[u]);
     }
   }
   __syncthreads();
@@ -181,7 +221,7 @@ __global__ void naf_rep_kernel(const T* __restrict__ g,
   }
 }
 
-template <typename T>
+template <typename T, int G>
 static int launch_naf_rep(const void* g, const void* cag, const void* rep,
                           const void* w4, void* s, void* sums, int T_, int n,
                           int H, int W, int TH, int TW, cudaStream_t stream) {
@@ -189,10 +229,10 @@ static int launch_naf_rep(const void* g, const void* cag, const void* rep,
   const int tiles_y = (H + TH - 1) / TH;
   const size_t smem =
       (size_t)n * ((TH + 4) * (TW + 4) + TH * TW) * sizeof(T);
-  cudaFuncSetAttribute(naf_rep_kernel<T>,
+  cudaFuncSetAttribute(naf_rep_kernel<T, G>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid(tiles_x * tiles_y, 1, T_);
-  naf_rep_kernel<T><<<grid, kRepThreads, smem, stream>>>(
+  naf_rep_kernel<T, G><<<grid, kRepThreads, smem, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(cag),
       static_cast<const float*>(rep), static_cast<const float*>(w4),
       static_cast<T*>(s), static_cast<float*>(sums), n, H, W, TH, TW,
@@ -200,22 +240,37 @@ static int launch_naf_rep(const void* g, const void* cag, const void* rep,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch_naf_rep_group(int group, const void* g, const void* cag,
+                                const void* rep, const void* w4, void* s,
+                                void* sums, int T_, int n, int H, int W,
+                                int TH, int TW, cudaStream_t stream) {
+  if (group == 8)
+    return launch_naf_rep<T, 8>(g, cag, rep, w4, s, sums, T_, n, H, W, TH, TW,
+                                stream);
+  if (group == 1)
+    return launch_naf_rep<T, 1>(g, cag, rep, w4, s, sums, T_, n, H, W, TH, TW,
+                                stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace shiftnet
 
-// g, s: (T, n, H, W); cag: (T, n) in g's type, or null; rep float32
-// [n/8][8][25][8]; w4 float32 [n][2n]; sums float32 [T][n_blocks][n].
-// n must be a multiple of 8, TW of 4.
+// g, s: (T, n, H, W); cag: (T, n) in g's type, or null; group: input
+// channels per RepConv group, 8 (rep float32 [n/8][8][25][8]) or 1
+// (depthwise, rep float32 [n][25]); w4 float32 [n][2n]; sums float32
+// [T][n_blocks][n].  n must be a multiple of 8, TW of 4.
 extern "C" int shiftnet_naf_rep(int dtype, const void* g, const void* cag,
                                 const void* rep, const void* w4, void* s,
-                                void* sums, int T, int n, int H, int W, int TH,
-                                int TW, void* stream) {
+                                void* sums, int T, int n, int group, int H,
+                                int W, int TH, int TW, void* stream) {
   using namespace shiftnet;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_naf_rep<__nv_bfloat16>(g, cag, rep, w4, s, sums, T, n, H, W,
-                                         TH, TW, st);
+    return launch_naf_rep_group<__nv_bfloat16>(group, g, cag, rep, w4, s, sums,
+                                               T, n, H, W, TH, TW, st);
   if (dtype == kF32)
-    return launch_naf_rep<float>(g, cag, rep, w4, s, sums, T, n, H, W, TH, TW,
-                                 st);
+    return launch_naf_rep_group<float>(group, g, cag, rep, w4, s, sums, T, n,
+                                       H, W, TH, TW, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,9 +36,10 @@ METRICS = {'psnr': {'type': 'psnr'}, 'ssim': {'type': 'ssim'}}
 # window, by variant and configuration, with ~10 % headroom over peaks
 # measured on an H100 80GB HBM3 (700 W) by chip_smoke.py (PERF.md, "H100
 # port"); a float32 window takes twice the figure.  The peak of every
-# fused_chw window sits in Encoder2's decoder_level1 shift blocks, so
-# conv_concat (which drops the rconcat and conv_hr0 concats) shares its
-# configuration's figure.
+# fused_chw window sits in Encoder2's shift blocks at H/2 (decoder_level1,
+# and in the small variants equally encoder_level1), so conv_concat (which
+# drops the rconcat and conv_hr0 concats) shares its configuration's
+# figure.
 # - deblur_plus, 40x720x1280 bf16: fused_chw and conv_concat 16.984 GB,
 #   461 B/px; fused_tfr 38.4-39.9 GB, up to 1082 B/px.  The plain
 #   configuration runs the same plain Encoder2 as fused_tfr, where that
@@ -47,11 +48,20 @@ METRICS = {'psnr': {'type': 'psnr'}, 'ssim': {'type': 'ssim'}}
 #   T = 16 (838 B/px) and 18.207 GB at T = 54 (828 B/px); the bf16 figure
 #   is half of that, not measured.  fused_tfr and plain were not measured
 #   and take deblur_plus's figures.
+# - deblur_small, 40x720x1280 bf16: fused_chw and conv_concat 12.084 GB,
+#   328 B/px; denoise_small, float32, 16x480x848: fused_chw and conv_concat
+#   3.962 GB, 608 B/px (bf16 figure 304, not measured).  fused_tfr and
+#   plain were not measured and take deblur_plus's figures.
 _BF16_BYTES_PER_PX = {
     ('deblur_plus', 'fused_chw'): 510, ('deblur_plus', 'conv_concat'): 510,
     ('deblur_plus', 'fused_tfr'): 1200, ('deblur_plus', 'plain'): 1200,
     ('denoise_plus', 'fused_chw'): 461, ('denoise_plus', 'conv_concat'): 461,
     ('denoise_plus', 'fused_tfr'): 1200, ('denoise_plus', 'plain'): 1200,
+    ('deblur_small', 'fused_chw'): 361, ('deblur_small', 'conv_concat'): 361,
+    ('deblur_small', 'fused_tfr'): 1200, ('deblur_small', 'plain'): 1200,
+    ('denoise_small', 'fused_chw'): 335,
+    ('denoise_small', 'conv_concat'): 335,
+    ('denoise_small', 'fused_tfr'): 1200, ('denoise_small', 'plain'): 1200,
 }
 WINDOW_BYTES_PER_PX = {
     (variant, config, dtype): factor * b

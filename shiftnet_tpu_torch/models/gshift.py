@@ -1,22 +1,24 @@
 """GShiftNet, the grouped spatial-temporal shift video restoration network.
 
-Counterpart of ``shiftnet_tpu/models/gshift.py`` (``Encoder2`` big-variant
-branch, ``GShiftNet``, ``build_model``).  Input is one clip ``(T, C_in, H,
-W)``; the forward predicts the ``T - past - future`` center frames with a
-global residual to the input (reference ``gshift_deblur1.py:783-791``).
+Counterpart of ``shiftnet_tpu/models/gshift.py`` (``Encoder2``,
+``GShiftNet``, ``build_model``).  Input is one clip ``(T, C_in, H, W)``; the
+forward predicts the ``T - past - future`` center frames with a global
+residual to the input (reference ``gshift_deblur1.py:783-791``).
 
 With ``cfg.fused_chw`` every module of the forward that the JAX package's
 ``_forward_chw`` (``gshift.py:407-500``) runs on a Pallas kernel runs on a
 CUDA kernel here (``ops/chw``, ``ops/naf_chw``), or on its plain version for
-CPU tensors; the concats, residual adds and the pixel shuffle stay plain
-torch, as they are XLA ops there.
+CPU tensors; the concats, residual adds, the pixel shuffle and the add-fuse
+PReLU stay plain torch, as they are XLA ops there.
 
-The big variants run: deblur_plus, and denoise_plus with its noise-map
-input and Encoder2's ShiftCABs at levels 0 and 1.  With ``cfg.conv_concat``
-(fused path only, as in JAX) rconcat and conv_hr0 run as one ``conv_cat``
-launch each over their unconcatenated inputs.  Not ported yet: the small
-variants' shift-block encoder (``encoder2_shift_encoder``) and add-fuse
-(``final_fuse_concat=False``); building those raises.
+All four variants run: deblur_plus; denoise_plus with its noise-map input
+and Encoder2's ShiftCABs at levels 0 and 1; and the small variants
+(deblur_small, denoise_small) with their shift-block encoder over two
+levels (``encoder2_shift_encoder``), the depthwise RepConv, and in
+deblur_small add-fuse (``final_fuse_concat=False``) and no boundary patch.
+With ``cfg.conv_concat`` (fused path only, as in JAX) rconcat, and conv_hr0
+where it reads a concat, run as one ``conv_cat`` launch each over their
+unconcatenated inputs.
 """
 from __future__ import annotations
 
@@ -33,33 +35,31 @@ from shiftnet_tpu_torch.models.layers import (CAB, Conv2d, ConvPReLU,
                                               ShiftCAB, SkipUpSample, TFRUNet)
 
 
-def _check_ported(cfg: GShiftNetConfig) -> None:
-    unported = ['encoder2_shift_encoder'] if cfg.encoder2_shift_encoder else []
-    if not cfg.final_fuse_concat:
-        unported.append('final_fuse_concat=False')
-    if unported:
-        raise NotImplementedError(
-            f'{cfg.name}: not ported yet: {", ".join(unported)}')
-
-
 class Encoder2(nn.Module):
-    """Temporal-fusion U-Net (``gshift_deblur1.py:548-642``, denoise
-    ``gshift_denoise1.py:573-670``), big variant: plain-CAB encoder over 3
-    levels (ShiftCABs at levels 0 and 1 in denoise_plus), shift blocks in
-    the decoder.
+    """Temporal-fusion U-Net (``gshift_deblur1.py:548-642``, small variant
+    ``gshift_deblur2.py:531-614``, denoise ``gshift_denoise1.py:573-670``).
+
+    Big variants: plain-CAB encoder over 3 levels (ShiftCABs at levels 0
+    and 1 in denoise_plus), shift blocks in the decoder.  Small variants
+    (``encoder2_shift_encoder``): 2 levels, 3 shift blocks at each level of
+    the encoder and the decoder; deblur_small fuses the full-res shortcut
+    by PReLU -> bias-free conv_hr0 -> add (``final_fuse_concat=False``)
+    instead of a conv over the concat.
 
     On the fused path the CABs of the level chains write over their input,
     which is dead there: each chain starts on the fresh output of a conv.
     ``concat``'s output is read by both ``skip_conv`` and the next stage,
     and enc11 / enc22 by ``skip_attn1`` / ``skip_attn2`` and the next down
-    conv, so the CABs that read those write fresh outputs.  A ShiftCAB
-    never writes its input."""
+    conv, so the CABs that read those write fresh outputs.  A ShiftCAB or
+    a shift block never writes its input."""
 
     def __init__(self, cfg: GShiftNetConfig):
         super().__init__()
         nf, nf0, red = cfg.n_feats2, cfg.n_feats0, cfg.ca_reduction
         fused = cfg.fused_chw
         self.conv_concat = cfg.conv_concat
+        self.shift_encoder = cfg.encoder2_shift_encoder
+        self.fuse_concat = cfg.final_fuse_concat
         shift_kw = dict(rounds=cfg.shift_rounds, reduction=red,
                         boundary_patch=cfg.boundary_patch,
                         mid_ca=cfg.cab_mid_ca, last_bias=cfg.cab_last_bias,
@@ -72,6 +72,10 @@ class Encoder2(nn.Module):
         def shift_cab(c, reverse):
             return ShiftCAB(c, 3, red, reverse=reverse, fused=fused)
 
+        def shift_blocks(*names):
+            for name in names:
+                self.add_module(name, EncoderShiftBlock(nf, **shift_kw))
+
         self.concat = cab(nf0)
         self.level0_shift_cabs = cfg.encoder2_level0_shift_cabs
         if self.level0_shift_cabs:
@@ -79,34 +83,49 @@ class Encoder2(nn.Module):
             self.encoder_level0_1 = shift_cab(nf0, True)
         self.down01 = ConvPReLU(
             Conv2d(nf0, nf, 2, stride=2, padding=0, fused=fused))
-        if cfg.encoder2_level1_shift_cabs:
+        if self.shift_encoder:
+            shift_blocks('encoder_level1', 'encoder_level1_1',
+                         'encoder_level1_2')
+        elif cfg.encoder2_level1_shift_cabs:
             self.encoder_level1 = shift_cab(nf, False)
             self.encoder_level1_1 = shift_cab(nf, True)
         else:
             self.encoder_level1 = cab(nf)
             self.encoder_level1_1 = cab(nf)
         self.down12 = DownSample(nf, nf, dp, fused=fused)
-        self.encoder_level2 = cab(nf)
-        self.encoder_level2_1 = cab(nf)
-        self.down23 = DownSample(nf, nf, dp, fused=fused)
-        self.encoder_level3 = cab(nf)
-        self.encoder_level3_1 = cab(nf)
-        self.decoder_level3 = EncoderShiftBlock(nf, **shift_kw)
-        self.decoder_level3_1 = EncoderShiftBlock(nf, **shift_kw)
-        self.skip_attn2 = cab(nf)
-        self.up32 = SkipUpSample(nf, nf, fused=fused)
-        self.decoder_level2 = EncoderShiftBlock(nf, **shift_kw)
-        self.decoder_level2_1 = EncoderShiftBlock(nf, **shift_kw)
+        if self.shift_encoder:
+            shift_blocks('encoder_level2', 'encoder_level2_1',
+                         'encoder_level2_2', 'decoder_level2',
+                         'decoder_level2_1', 'decoder_level2_2')
+        else:
+            self.encoder_level2 = cab(nf)
+            self.encoder_level2_1 = cab(nf)
+            self.down23 = DownSample(nf, nf, dp, fused=fused)
+            self.encoder_level3 = cab(nf)
+            self.encoder_level3_1 = cab(nf)
+            shift_blocks('decoder_level3', 'decoder_level3_1')
+            self.skip_attn2 = cab(nf)
+            self.up32 = SkipUpSample(nf, nf, fused=fused)
+            shift_blocks('decoder_level2', 'decoder_level2_1')
         self.skip_attn1 = cab(nf)
         self.up21 = SkipUpSample(nf, nf, fused=fused)
-        self.decoder_level1 = EncoderShiftBlock(nf, **shift_kw)
-        self.decoder_level1_1 = EncoderShiftBlock(nf, **shift_kw)
-        self.decoder_level1_2 = EncoderShiftBlock(nf, **shift_kw)
+        shift_blocks('decoder_level1', 'decoder_level1_1', 'decoder_level1_2')
         self.upsample0 = PixelShufflePack(nf, nf0, scale=2, upsample_kernel=3,
                                           fused=fused)
         self.skip_conv = cab(nf0)
-        self.conv_hr0 = Conv2d(2 * nf0, nf0, 3, bias=True, fused=fused)
+        if self.fuse_concat:
+            self.conv_hr0 = Conv2d(2 * nf0, nf0, 3, bias=True, fused=fused)
+        else:
+            self.act = PReLU()
+            self.conv_hr0 = Conv2d(nf0, nf0, 3, fused=fused)
         self.out_conv = cab(nf0)
+
+    def _chain(self, x, *names, inplace=False):
+        """The named blocks in turn; ``inplace`` passes on to CABs."""
+        for name in names:
+            blk = getattr(self, name)
+            x = blk(x, inplace=True) if inplace else blk(x)
+        return x
 
     def forward(self, x):
         x = self.concat(x)
@@ -114,26 +133,38 @@ class Encoder2(nn.Module):
         if self.level0_shift_cabs:
             x = self.encoder_level0_1(self.encoder_level0(x))
         x = self.down01(x)
-        enc11 = self.encoder_level1_1(self.encoder_level1(x, inplace=True),
-                                      inplace=True)
-        del x
-        enc22 = self.encoder_level2_1(
-            self.encoder_level2(self.down12(enc11), inplace=True),
-            inplace=True)
-        y = self.encoder_level3_1(
-            self.encoder_level3(self.down23(enc22), inplace=True),
-            inplace=True)
-        y = self.decoder_level3_1(self.decoder_level3(y))
-        y = self.up32(y, self.skip_attn2(enc22))
-        del enc22
-        y = self.decoder_level2_1(self.decoder_level2(y))
+        if self.shift_encoder:
+            enc11 = self._chain(x, 'encoder_level1', 'encoder_level1_1',
+                                'encoder_level1_2')
+            del x
+            y = self._chain(self.down12(enc11), 'encoder_level2',
+                            'encoder_level2_1', 'encoder_level2_2',
+                            'decoder_level2', 'decoder_level2_1',
+                            'decoder_level2_2')
+        else:
+            enc11 = self._chain(x, 'encoder_level1', 'encoder_level1_1',
+                                inplace=True)
+            del x
+            enc22 = self._chain(self.down12(enc11), 'encoder_level2',
+                                'encoder_level2_1', inplace=True)
+            y = self._chain(self.down23(enc22), 'encoder_level3',
+                            'encoder_level3_1', inplace=True)
+            y = self._chain(y, 'decoder_level3', 'decoder_level3_1')
+            y = self.up32(y, self.skip_attn2(enc22))
+            del enc22
+            y = self._chain(y, 'decoder_level2', 'decoder_level2_1')
         y = self.up21(y, self.skip_attn1(enc11))
         del enc11
-        y = self.decoder_level1_2(self.decoder_level1_1(
-            self.decoder_level1(y)))
+        y = self._chain(y, 'decoder_level1', 'decoder_level1_1',
+                        'decoder_level1_2')
         up = self.upsample0(y)
         del y
-        out = self.conv_hr0.forward_cat([up, skip], virtual=self.conv_concat)
+        if self.fuse_concat:
+            out = self.conv_hr0.forward_cat([up, skip],
+                                            virtual=self.conv_concat)
+        else:  # PReLU and the add in the compute type, as in JAX
+            out = self.conv_hr0(self.act(up))
+            out += skip
         del up, skip
         return self.out_conv(out, inplace=True)
 
@@ -145,7 +176,6 @@ class GShiftNet(nn.Module):
 
     def __init__(self, cfg: GShiftNetConfig):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         nf0 = cfg.n_feats0
         fused = cfg.fused_chw

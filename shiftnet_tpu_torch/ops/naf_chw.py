@@ -11,8 +11,9 @@ attention MLPs (``chw.ca_mlp``) as plain torch between them:
   channels;
 - ``naf_gate`` (F, ``csrc/naf_gate.cu``): [CAB2: depthwise 3x3 over hw] ->
   LayerNorm folded into the 1x1 expand -> RepConv2 -> SimpleGate;
-- ``naf_rep`` (G, ``csrc/naf_rep.cu``): [mid-CA scale] -> merged grouped
-  RepConv -> 1x1 expand -> SimpleGate2;
+- ``naf_rep`` (G, ``csrc/naf_rep.cu``): [mid-CA scale] -> merged RepConv
+  (grouped, or depthwise in the small variants) -> 1x1 expand ->
+  SimpleGate2;
 - ``naf_back`` (H, ``csrc/naf_back.cu``): y + beta * (w7 . (s * ca) + b7).
 
 Dispatch is that of ``ops/chw``: a CUDA tensor launches the kernel or
@@ -38,6 +39,7 @@ LN_EPS = 1e-6
 GATE_SLACK = 8    # csrc/naf_gate.cu, kGateSlack
 BACK_PX = 128     # csrc/naf_back.cu, kBackPx: pixels per block
 TILES = ((16, 16), (8, 16), (8, 8))  # output tiles, largest first
+REP_GROUPS = (8, 1)  # RepConv input channels per group: big, small variants
 
 
 def _col(v: torch.Tensor) -> torch.Tensor:
@@ -60,9 +62,10 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
     - ``wg`` [cin][2n]: (w0 * gamma) transposed, cast to the compute type;
       ``c1 = w0 . gamma`` and ``c2 = w0 . beta_ln`` [2n] (LayerNorm folded
       into the expand);
-    - ``rep`` (n, 8, 5, 5): the grouped RepConv with its 3x3 branch added to
-      the centre taps and the identity to the centre tap of each channel's
-      own input, merged in float32 and cast once (not the TPU's dense
+    - ``rep`` (n, 8, 5, 5), or (n, 1, 5, 5) for the small variants'
+      depthwise RepConv: the RepConv with its 3x3 branch added to the
+      centre taps and the identity to the centre tap of each channel's own
+      input, merged in float32 and cast once (not the TPU's dense
       block-diagonal form, ``_dense_rep``);
     - ``dw0`` [2n][9] (RepConv2), ``dwc`` [add_c][9] (CAB2's conv1, None
       for CAB1), ``w4`` [n][2n], ``w7`` [n][n] (input-major), ``beta`` [n]
@@ -79,14 +82,13 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
     gamma, beta_ln = q('norm.weight'), q('norm.bias')
     # a copy: in float32, q() returns the parameter's own storage
     rep = q(f'body.{3 + off}.conv_1.weight').clone()  # (n, n/groups, 5, 5)
-    if rep.shape[1] != 8:
-        raise NotImplementedError(
-            f'{name}: RepConv with {rep.shape[1]} input channels per group; '
-            'only groups of 8 are ported (the depthwise RepConv of the small '
-            'variants is not)')
+    cin_g = rep.shape[1]
+    if cin_g not in REP_GROUPS:
+        raise ValueError(f'{name}: RepConv with {cin_g} input channels per '
+                         f'group; the kernel takes {REP_GROUPS}')
     rep[:, :, 1:4, 1:4] += q(f'body.{3 + off}.conv_2.weight')
     o = torch.arange(n, device=rep.device)
-    rep[o, o % 8, 2, 2] += 1.0
+    rep[o, o % cin_g, 2, 2] += 1.0
     return {
         'wg': (w0 * gamma).t().to(dtype).float().contiguous(),
         'c1': w0 @ gamma,
@@ -230,7 +232,8 @@ def naf_rep_plain(g, cag, prep):
     n = g.shape[1]
     if cag is not None:
         g = g * cag[:, :, None, None]
-    r = F.conv2d(g.float(), prep['rep'], padding=2, groups=n // 8).to(dt)
+    r = F.conv2d(g.float(), prep['rep'], padding=2,
+                 groups=n // prep['rep'].shape[1]).to(dt)
     e2 = torch.einsum('io,tihw->tohw', prep['w4'], r.float())
     s = (e2[:, :n].to(dt) * torch.sigmoid(e2[:, n:]).to(dt)).contiguous()
     return s, s.float().sum(dim=(2, 3))
@@ -238,29 +241,34 @@ def naf_rep_plain(g, cag, prep):
 
 def naf_rep(g: torch.Tensor, cag: torch.Tensor | None,
             prep: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """[g * cag] -> merged grouped RepConv -> expand n -> 2n ->
-    SimpleGate2.  ``cag``: the (T, n) mid-CALayer scale in g's type, or
-    None.  Returns s (T, n, H, W) and its float32 channel sums (T, n)."""
+    """[g * cag] -> merged RepConv (grouped, or depthwise when ``prep['rep']``
+    is (n, 1, 5, 5)) -> expand n -> 2n -> SimpleGate2.  ``cag``: the (T, n)
+    mid-CALayer scale in g's type, or None.  Returns s (T, n, H, W) and its
+    float32 channel sums (T, n)."""
     if not _on_cuda(g):
         return naf_rep_plain(g, cag, prep)
     rep, w4 = prep['rep'], prep['w4']
     code = _check('naf_rep', g, cag, f32=(rep, w4))
     t, n, h, w = g.shape
-    if (n % 8 or rep.shape != (n, 8, 5, 5) or w4.shape != (n, 2 * n)
+    cin_g = rep.shape[1]
+    if (n % 8 or cin_g not in REP_GROUPS or rep.shape != (n, cin_g, 5, 5)
+            or w4.shape != (n, 2 * n)
             or (cag is not None and cag.shape != (t, n))):
         raise ValueError(f'naf_rep: g {tuple(g.shape)}, rep '
                          f'{tuple(rep.shape)}, w4 {tuple(w4.shape)}')
     th, tw = naf_rep_tile(n, g.element_size())
     n_blocks = -(-h // th) * -(-w // tw)
-    # [group][input channel][tap][8 output channels of the group]
-    rep_k = rep.view(n // 8, 8, 8, 25).permute(0, 2, 3, 1).contiguous()
+    if cin_g == 8:  # [group][input channel][tap][8 output channels]
+        rep_k = rep.view(n // 8, 8, 8, 25).permute(0, 2, 3, 1).contiguous()
+    else:  # depthwise: [channel][tap], as it comes
+        rep_k = rep
     s = torch.empty_like(g)
     part = torch.empty((t, n_blocks, n), device=g.device, dtype=torch.float32)
     lib = _build.library()
     _build.check(lib.shiftnet_naf_rep(
         code, g.data_ptr(), None if cag is None else cag.data_ptr(),
         rep_k.data_ptr(), w4.data_ptr(), s.data_ptr(), part.data_ptr(), t, n,
-        h, w, th, tw, _stream()), 'naf_rep')
+        cin_g, h, w, th, tw, _stream()), 'naf_rep')
     LAUNCHES['naf_rep'] += 1
     return s, part.sum(dim=1)
 

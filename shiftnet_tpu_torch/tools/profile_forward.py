@@ -1,15 +1,16 @@
 """Where the time and the memory of one window go, on the GPU.
 
   python -m shiftnet_tpu_torch.tools.profile_forward \
-      [--variant {deblur_plus,denoise_plus}] \
+      [--variant {deblur_plus,deblur_small,denoise_plus,denoise_small}] \
       [--config {fused_chw,conv_concat,fused_tfr,plain} ...]
 
 For each configuration given (default ``fused_chw``, the Evaluator's: every
 kernel of the port but conv_cat; ``conv_concat``: also conv_cat at rconcat
 and conv_hr0; ``fused_tfr``: the TFR U-Nets' kernels only; ``plain``: none),
 on seeded weights and a seeded window in the variant's default type
-(deblur_plus: 40x720x1280 bf16, the ``bench.py`` protocol; denoise_plus:
-16x480x848 float32 at sigma 10/255, the ``bench_denoise.py`` protocol), runs
+(deblur_plus and deblur_small: 40x720x1280 bf16, the ``bench.py``
+protocol; denoise_plus and denoise_small: 16x480x848 float32 at sigma
+10/255, the ``bench_denoise.py`` protocol), runs
 the port's ``Evaluator.forward_window`` once to warm up, then:
 
 1. once with CUDA events around every stage of the model (the top-level
@@ -44,7 +45,9 @@ OUR_KERNELS = ('cab_front_kernel', 'cab_back_kernel', 'conv_kernel',
                'up_skip_kernel', 'shift_round_kernel', 'naf_gate_kernel',
                'naf_rep_kernel', 'naf_back_kernel', 'conv_cat_kernel')
 WINDOWS = {'deblur_plus': ((40, 720, 1280, 3), None),
-           'denoise_plus': ((16, 480, 848, 3), 10.0 / 255.0)}
+           'deblur_small': ((40, 720, 1280, 3), None),
+           'denoise_plus': ((16, 480, 848, 3), 10.0 / 255.0),
+           'denoise_small': ((16, 480, 848, 3), 10.0 / 255.0)}
 TOP = 15
 
 

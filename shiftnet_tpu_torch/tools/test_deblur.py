@@ -2,9 +2,10 @@
 ``shiftnet_tpu/tools/test_deblur.py``).
 
 Usage:
-  python -m shiftnet_tpu_torch.tools.test_deblur --variant deblur_plus \\
-      --model_path ckpt.npz --data_path DeepVideoDeblurring_Dataset/GoPro \\
-      --one_len 48 [--fp32] [--save_image] [--device cuda]
+  python -m shiftnet_tpu_torch.tools.test_deblur \\
+      --variant {deblur_plus,deblur_small} --model_path ckpt.npz \\
+      --data_path DeepVideoDeblurring_Dataset/GoPro --one_len 48 \\
+      [--fp32] [--save_image] [--device cuda]
 
 ``--model_path`` takes the torch-keyed ``.npz`` exports of either package or
 a reference ``.pth`` checkpoint.
@@ -18,7 +19,7 @@ from shiftnet_tpu_torch.tools.params_io import load_state
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--variant', default='deblur_plus',
-                    choices=['deblur_plus'])
+                    choices=['deblur_plus', 'deblur_small'])
     ap.add_argument('--model_path', required=True)
     ap.add_argument('--data_path', required=True)
     ap.add_argument('--result_path', default='infer_results')

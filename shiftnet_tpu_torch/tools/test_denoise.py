@@ -2,9 +2,10 @@
 ``shiftnet_tpu/tools/test_denoise.py``).
 
 Usage:
-  python -m shiftnet_tpu_torch.tools.test_denoise --variant denoise_plus \\
-      --model_path ckpt.npz --data_path DAVIS-test --sigma 10 \\
-      [--quadrant] [--fp32 | --bf16] [--save_image] [--device cuda]
+  python -m shiftnet_tpu_torch.tools.test_denoise \\
+      --variant {denoise_plus,denoise_small} --model_path ckpt.npz \\
+      --data_path DAVIS-test --sigma 10 [--quadrant] [--fp32 | --bf16] \\
+      [--save_image] [--device cuda]
 
 ``--data_path`` holds one folder of clean frames per video; the noise of
 ``--sigma`` (0-255 scale) is drawn from ``--seed``.  ``--model_path`` takes
@@ -20,7 +21,7 @@ from shiftnet_tpu_torch.tools.params_io import load_state
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--variant', default='denoise_plus',
-                    choices=['denoise_plus'])
+                    choices=['denoise_plus', 'denoise_small'])
     ap.add_argument('--model_path', required=True)
     ap.add_argument('--data_path', required=True)
     ap.add_argument('--result_path', default='infer_results')

@@ -144,7 +144,8 @@ def test_deblur_cli_logs_psnr_ssim(tmp_path):
 
 def test_port_imports_no_jax():
     """Every port module and chip_smoke import with JAX, flax and the JAX
-    package all blocked, and leave no module of the JAX package loaded."""
+    package all blocked, every variant builds and its prep_naf runs, and no
+    module of the JAX package is left loaded."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -157,6 +158,15 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "import torch\n"
+        "from shiftnet_tpu_torch.models import CONFIGS, build_model\n"
+        "from shiftnet_tpu_torch.ops import naf_chw\n"
+        "for v in CONFIGS:\n"
+        "    m = build_model(v, fused_chw=True)\n"
+        "    blk = m.stage1.decoder_level1.encoder_level1_1\n"
+        "    naf_chw.prep_naf(dict(blk.named_parameters()), '0',\n"
+        "                     torch.float32, mid_ca=m.cfg.cab_mid_ca,\n"
+        "                     last_bias=m.cfg.cab_last_bias)\n"
         "loaded = [k for k, v in sys.modules.items() if v is not None and\n"
         "          (k == 'shiftnet_tpu' or k.startswith('shiftnet_tpu.'))]\n"
         "assert not loaded, loaded\n"

@@ -42,7 +42,10 @@ def randn(g, *shape, scale=1.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('c,h,w', [(24, 16, 16), (36, 19, 37), (48, 33, 20),
-                                   (80, 21, 45)])  # ragged edge tiles
+                                   (80, 21, 45),  # ragged edge tiles
+                                   # the small variants' TFR widths, not
+                                   # multiples of 8
+                                   (14, 19, 37), (18, 33, 20), (22, 21, 45)])
 def test_cab_front_and_back_match_plain(cuda, dtype, c, h, w):
     g = torch.Generator().manual_seed(c)
     x = randn(g, 3, c, h, w).to(cuda, dtype)
@@ -118,6 +121,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     (80, 96, 3, 1, True, False),   # upsample_conv
     (48, 24, 3, 1, True, False),   # conv_hr0
     (72, 24, 3, 1, True, False),   # rconcat
+    (14, 64, 2, 2, False, True),   # small variants: down01
+    (64, 64, 3, 2, True, False),   # down12
+    (64, 56, 3, 1, True, False),   # upsample_conv
+    (14, 14, 3, 1, False, False),  # deblur_small's add-fuse conv_hr0
 ])
 def test_conv_encoder2_shapes_match_plain(cuda, dtype, cin, cout, k, stride,
                                           bias, prelu):
@@ -202,6 +209,19 @@ def test_up_skip_at_encoder2_width_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout', [(18, 14), (22, 18), (64, 64)])
+def test_up_skip_at_small_widths_matches_plain(cuda, dtype, cin, cout):
+    """The small variants' TFR up32 / up21 and Encoder2's up21."""
+    g = torch.Generator().manual_seed(cin)
+    x = randn(g, 2, cin, 11, 19).to(cuda, dtype)
+    w11 = randn(g, cout, cin, 1, 1, scale=cin ** -0.5).to(cuda, dtype)
+    skip = randn(g, 2, cout, 22, 38).to(cuda, dtype)
+    assert norm_err(chw.up_skip(x, w11, skip),
+                    chw.up_skip_plain(x, w11, skip)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('number', [3, 5])
 @pytest.mark.parametrize('reverse', [False, True])
 @pytest.mark.parametrize('patch', [False, True])
@@ -217,11 +237,13 @@ def test_shift_round_matches_plain_bit_for_bit(cuda, dtype, number, reverse,
     assert chw.LAUNCHES['shift_round'] == 1
 
 
-def naf_params(n, cab2, opts, device, seed):
+def naf_params(n, cab2, opts, device, seed, depthwise=False):
     """Torch-named parameters of a CAB2 / CAB1 with a LayerNorm that is not
     the identity (c2 != 0, so the halo masks matter), beta of order 1 and,
-    with ``opts``, the mid-CALayer and a nonzero last bias."""
-    kw = dict(kernel_size=5, reduction=4, mid_ca=opts, last_bias=opts)
+    with ``opts``, the mid-CALayer and a nonzero last bias; ``depthwise``
+    gives the small variants' depthwise RepConv."""
+    kw = dict(kernel_size=5, reduction=4, mid_ca=opts, last_bias=opts,
+              repconv_depthwise=depthwise)
     mod = (layers.CAB2(n, 8 * (n // 16), **kw) if cab2
            else layers.CAB1(n, **kw))
     state = init_state(mod, seed)
@@ -237,17 +259,12 @@ def naf_params(n, cab2, opts, device, seed):
     return {k: v.detach().to(device) for k, v in mod.named_parameters()}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('n,cab2,opts', [
-    (48, True, False), (80, True, False), (80, False, False),
-    (48, False, True), (80, True, True)])  # opts: cag, b7
-@pytest.mark.parametrize('h,w', [(19, 37), (33, 20)])  # ragged edge tiles
-def test_naf_kernels_match_plain(cuda, dtype, n, cab2, opts, h, w):
+def check_naf_kernels(cuda, dtype, n, cab2, opts, h, w, depthwise=False):
     """Each of naf_gate, naf_rep and naf_back against its plain version on
     the plain version's inputs, then the whole block."""
-    p = naf_params(n, cab2, opts, cuda, seed=n + h)
+    p = naf_params(n, cab2, opts, cuda, seed=n + h, depthwise=depthwise)
     prep = naf_chw.prep_naf(p, '', dtype, mid_ca=opts, last_bias=opts)
+    assert prep['rep'].shape == (n, 1 if depthwise else 8, 5, 5)
     g = torch.Generator().manual_seed(n * h)
     y = randn(g, 3, n, h, w).to(cuda, dtype)
     hw = randn(g, 3, 8 * (n // 16), h, w).to(cuda, dtype) if cab2 else None
@@ -274,6 +291,28 @@ def test_naf_kernels_match_plain(cuda, dtype, n, cab2, opts, h, w):
         ref = naf_chw.naf_cab(cpu, '', y.cpu(), None if hw is None
                               else hw.cpu(), mid_ca=opts, last_bias=opts)
         assert norm_err(full.cpu(), ref) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,cab2,opts', [
+    (48, True, False), (80, True, False), (80, False, False),
+    (48, False, True), (80, True, True)])  # opts: cag, b7
+@pytest.mark.parametrize('h,w', [(19, 37), (33, 20)])  # ragged edge tiles
+def test_naf_kernels_match_plain(cuda, dtype, n, cab2, opts, h, w):
+    check_naf_kernels(cuda, dtype, n, cab2, opts, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cab2,opts', [(True, False), (False, False),
+                                       (True, True), (False, True)])
+@pytest.mark.parametrize('h,w', [(19, 37), (33, 20)])  # ragged edge tiles
+def test_naf_kernels_depthwise_match_plain(cuda, dtype, cab2, opts, h, w):
+    """The small variants' blocks: n = 64, add_c 32, the depthwise RepConv
+    (naf_rep's G = 1 form); opts: deblur_small has neither cag nor b7,
+    denoise_small both."""
+    check_naf_kernels(cuda, dtype, 64, cab2, opts, h, w, depthwise=True)
 
 
 @pytest.mark.cuda

@@ -173,9 +173,3 @@ def test_init_state_is_seeded_and_order_free():
     assert not a[f'{cab2}.norm.bias'].any()
     assert torch.equal(a[f'{cab2}.norm.weight'],
                        torch.ones_like(a[f'{cab2}.norm.weight']))
-
-
-@pytest.mark.parametrize('name', ['deblur_small', 'denoise_small'])
-def test_unported_variants_raise(name):
-    with pytest.raises(NotImplementedError, match='not ported'):
-        build_model(name)

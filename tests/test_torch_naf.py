@@ -75,10 +75,13 @@ def test_shift_round_plain_is_bit_exact(number, reverse, patch):
     np.testing.assert_array_equal(hw.numpy(), to_nchw(jhw))
 
 
-def naf_module(n, cab2, mid_ca, last_bias, seed):
+def naf_module(n, cab2, mid_ca, last_bias, seed, reduction=4,
+               depthwise=False):
     """A port CAB2 / CAB1 with seeded weights whose LayerNorm is not the
-    identity, beta is O(1) and the last bias (if any) is not zero."""
-    kw = dict(kernel_size=5, reduction=4, mid_ca=mid_ca, last_bias=last_bias)
+    identity, beta is O(1) and the last bias (if any) is not zero;
+    ``depthwise``: the small variants' depthwise RepConv."""
+    kw = dict(kernel_size=5, reduction=reduction, mid_ca=mid_ca,
+              last_bias=last_bias, repconv_depthwise=depthwise)
     add_c = 8 * (n // 16)
     mod = layers.CAB2(n, add_c, **kw) if cab2 else layers.CAB1(n, **kw)
     state = init_state(mod, seed)
@@ -95,14 +98,24 @@ def naf_module(n, cab2, mid_ca, last_bias, seed):
     return mod, fmod, state, add_c
 
 
-@pytest.mark.parametrize('n,cab2,opts', [
-    (48, True, False), (48, False, False), (80, True, False),
-    (80, False, False),
-    (48, True, True), (80, False, True),  # mid_ca and last_bias on
-])
-def test_naf_cab_matches_xla_twin_and_flax(n, cab2, opts):
+NAF_CASES = [  # n, CAB2, mid_ca and last_bias (opts), depthwise RepConv
+    pytest.param(n, cab2, opts, False, id=f'{n}-{cab2}-{opts}')
+    for n, cab2, opts in ((48, True, False), (48, False, False),
+                          (80, True, False), (80, False, False),
+                          (48, True, True), (80, False, True))
+] + [  # the small variants' blocks: opts off is deblur_small's (CALayer
+    # reduction 1), on is denoise_small's (reduction 4)
+    pytest.param(n, cab2, opts, True, id=f'{n}-{cab2}-{opts}-depthwise')
+    for n in (32, 64) for cab2 in (True, False) for opts in (False, True)
+]
+
+
+@pytest.mark.parametrize('n,cab2,opts,depthwise', NAF_CASES)
+def test_naf_cab_matches_xla_twin_and_flax(n, cab2, opts, depthwise):
     t, h, w = 2, 19, 37  # ragged: no tile or row stride divides it
-    mod, fmod, state, add_c = naf_module(n, cab2, opts, opts, seed=n + cab2)
+    mod, fmod, state, add_c = naf_module(
+        n, cab2, opts, opts, seed=n + cab2,
+        reduction=1 if depthwise and not opts else 4, depthwise=depthwise)
     y = rand((t, n, h, w), 1)
     hw = rand((t, add_c, h, w), 2) if cab2 else None
     yt = torch.from_numpy(y)
@@ -127,7 +140,8 @@ def test_naf_cab_matches_xla_twin_and_flax(n, cab2, opts):
         out = chw_xla.naf_cab_chw_xla(
             jchw.from_nhwc(a[0], padr=4, pf=1),
             jchw.from_nhwc(a[1], padr=4, pf=1) if cab2 else None, naf,
-            groups=n // 8, mid_ca=opts, use_last_bias=opts)
+            groups=n if depthwise else n // 8, mid_ca=opts,
+            use_last_bias=opts)
         return jchw.to_nhwc(out)
 
     assert norm_err(got, to_nchw(twin(naf, *args))) < 1e-5
@@ -174,6 +188,30 @@ def test_prep_naf_matches_prep_naf_weights():
                                np.asarray(want['rep']), rtol=0, atol=1e-7)
 
 
+def test_prep_naf_depthwise_matches_dense_rep():
+    """The small variants' depthwise RepConv: ``rep`` (n, 1, 5, 5), merged
+    as ``_dense_rep`` merges it, which the port keeps depthwise and the TPU
+    kernel takes as a diagonal block matrix."""
+    n, add_c = 64, 32
+    mod, fmod, state, _ = naf_module(n, True, False, False, seed=8,
+                                     reduction=1, depthwise=True)
+    prep = naf_chw.prep_naf(dict(mod.named_parameters()), '', torch.float32)
+    assert prep['rep'].shape == (n, 1, 5, 5)
+    y = jnp.zeros((1, 4, 4, n))
+    tpl = jax.eval_shape(lambda: fmod.init(
+        jax.random.PRNGKey(0), y, jnp.zeros((1, 4, 4, add_c))))['params']
+    params = torch_state_to_flax({k: v.numpy() for k, v in state.items()},
+                                 tpl)
+    naf = jnaf.naf_params_from_tree(params, add_c=add_c)
+    want = jnaf.prep_naf_weights(naf, n, add_c, n, jnp.float32, n, add_c)
+    # densified: dense[o, tap * n + o] = rep[o, 0, tap]
+    rep = prep['rep'].reshape(n, 25).numpy()
+    dense = np.zeros((n, 25, n), np.float32)
+    dense[np.arange(n), :, np.arange(n)] = rep
+    np.testing.assert_allclose(dense.reshape(n, 25 * n),
+                               np.asarray(want['rep']), rtol=0, atol=1e-7)
+
+
 def test_encoder_shift_block_fused_matches_unfused_and_keeps_its_input():
     n = 48
     blk = layers.EncoderShiftBlock(n, rounds=2, fused=True)
@@ -207,7 +245,3 @@ def test_gate_and_rep_tiles_fit_shared_memory():
     assert naf_chw.naf_rep_smem(80, 4, 16, 16) == 209920
 
 
-def test_depthwise_repconv_is_not_ported_yet():
-    mod = layers.CAB1(16, kernel_size=5, reduction=1, repconv_depthwise=True)
-    with pytest.raises(NotImplementedError, match='groups of 8'):
-        naf_chw.prep_naf(dict(mod.named_parameters()), '', torch.float32)
