@@ -7,8 +7,9 @@ Phases, each of which must pass:
 
 1. device: the card's name and power limit, torch and CUDA versions.  There
    is no CPU path: without a CUDA device the run fails.
-2. build: compile the nine CUDA kernels from ``shiftnet_tpu_torch/csrc``
-   into one library (one nvcc per source, in parallel).
+2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
+   nine model kernels and the four probe kernels) into one library (one
+   nvcc per source, in parallel).
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
@@ -38,6 +39,15 @@ Phases, each of which must pass:
    counts, peak and fps, and once with ``conv_concat``; a DAVIS-width
    16x480x852 denoise_small window, which must take the quadrant plan; the
    whole model of each against the all-plain model on a 5-frame window.
+7. probes: the six probe tools of ``shiftnet_tpu_torch/tools`` (the port's
+   counterparts of the JAX package's ``tools/`` probes), each driven
+   through its entry point with the probe kernels' launches counted
+   against what the tool implies and every tool's own checks passing;
+   then each of the ten probe kernels of ``ops/probes.py`` against its
+   plain version at the JAX tool's largest shape (the permutation also at
+   the port's shift_round and decoder_level1 shapes), copies bit for bit
+   and ``mm_loop`` within one bf16 ulp of its largest output, with median
+   times, bounds and the PyTorch call that computes the same function.
 
 The line before the last is a JSON object with each kernel's launches on
 every driven path, its error, its times and its bound; the last line is
@@ -859,11 +869,284 @@ def _form_launches(name, path, n):
     return n
 
 
+# Each probe row of the kernels line: (source, the TPU kernel it replaces,
+# the launch counter of ``ops/probes.py``).  The ten probe kernels of the
+# JAX package's tools/ run on four CUDA kernels.
+PROBES = {
+    'mm_loop': ('probe_mm.cu', 'tools/microbench_mm.py:16', 'mm_loop'),
+    'copy_x2_staged': ('probe_copy.cu', 'tools/microbench.py:126',
+                       'block_copy_staged'),
+    'hbm_copy': ('probe_copy.cu', 'tools/probe_hbm_copy.py:29',
+                 'block_copy'),
+    'lane_stride': ('probe_stride.cu', 'tools/probe_chw.py:119',
+                    'strided_copy'),
+    'sub_stride': ('probe_stride.cu', 'tools/probe_chw.py:135',
+                   'strided_copy'),
+    'strided_store': ('probe_stride.cu', 'tools/probe_chw.py:152',
+                      'strided_copy'),
+    'permute_direct': ('probe_copy.cu', 'tools/probe_copy_bw.py:45',
+                       'block_copy'),
+    'permute_staged': ('probe_copy.cu', 'tools/probe_copy_bw.py:61',
+                       'block_copy_staged'),
+    'dma_offset': ('probe_copy.cu', 'tools/probe_dma_align.py:34',
+                   'block_copy_staged'),
+    'value_slice': ('probe_copy.cu', 'tools/probe_dma_align.py:64',
+                    'block_copy'),
+}
+
+def _probe_drive():
+    """Each probe tool through its entry point, the probe launch counts set
+    to 0 just before and read just after, held against the launches the
+    tool implies (each case: one checked launch, the warm-up and the timed
+    runs); every tool's own checks must pass.  probe_chw's three strided
+    modes share one kernel, so its three entry points run one by one.
+    Returns {probe row: launches}."""
+    from shiftnet_tpu_torch.ops import probes
+    from shiftnet_tpu_torch.tools import (microbench, microbench_mm,
+                                          probe_chw, probe_copy_bw,
+                                          probe_dma_align, probe_hbm_copy)
+    from shiftnet_tpu_torch.tools.timing import CASE_LAUNCHES as n
+
+    def ok_rc(fn):
+        return lambda: 0 if fn() else 1
+    runs = (  # (label, entry point returning an exit code, {row: launches})
+        ('microbench_mm.main', microbench_mm.main,
+         {'mm_loop': n * len(microbench_mm.cases())}),
+        ('microbench.main', microbench.main, {'copy_x2_staged': n}),
+        ('probe_hbm_copy.main', probe_hbm_copy.main, {'hbm_copy': n}),
+        ('probe_chw.lane_stride', ok_rc(probe_chw.lane_stride),
+         {'lane_stride': n}),
+        ('probe_chw.sub_stride', ok_rc(probe_chw.sub_stride),
+         {'sub_stride': n}),
+        ('probe_chw.strided_store', ok_rc(probe_chw.strided_store),
+         {'strided_store': n}),
+        ('probe_copy_bw.main', probe_copy_bw.main,
+         {'permute_direct': (1 + len(probe_copy_bw.PORT_SHAPES)) * n,
+          'permute_staged': (len(probe_copy_bw.N_TILES)
+                             + len(probe_copy_bw.PORT_SHAPES)) * n}),
+        ('probe_dma_align.main', probe_dma_align.main,
+         {'dma_offset': len(probe_dma_align.CASES) * n,
+          'value_slice': len(probe_dma_align.CASES) * n}),
+    )
+    launches = {}
+    for label, entry, rows in runs:
+        probes.reset_launches()
+        rc = entry()
+        got = dict(probes.LAUNCHES)
+        want = dict.fromkeys(got, 0)
+        for row, count in rows.items():
+            want[PROBES[row][2]] += count
+        print(f'probes: {label} rc {rc} launches {got}', flush=True)
+        if rc != 0:
+            raise AssertionError(f'probes: {label} failed its own checks')
+        if got != want:
+            raise AssertionError(f'probes: {label} launches {got}, expected '
+                                 f'{want}')
+        launches.update(rows)
+    return launches
+
+
+class ProbeCase:
+    """One probe call: ``kernel`` and ``plain`` compute the same function;
+    ``region`` picks what is compared (the written part of a copy);
+    ``nbytes`` and ``ops`` are what the function must move and compute;
+    ``library`` is the PyTorch call(s) computing it, or None."""
+
+    def __init__(self, kernel, plain, library, nbytes, ops=0, region=None,
+                 exact=True):
+        self.kernel, self.plain, self.library = kernel, plain, library
+        self.nbytes, self.ops, self.exact = nbytes, ops, exact
+        self.region = region or (lambda out: out)
+
+
+def _probe_cases():
+    """(probe row, label, make() -> ProbeCase), the JAX tool's largest
+    shape of each row first."""
+    import torch
+    import torch.nn.functional as F
+    from shiftnet_tpu_torch.ops import probes
+    from shiftnet_tpu_torch.tools import (microbench, microbench_mm,
+                                          probe_chw, probe_copy_bw,
+                                          probe_dma_align)
+    from shiftnet_tpu_torch.tools.timing import rand_bf16, randn_bf16
+
+    cases = []
+    mm_cases = microbench_mm.cases()  # the dense reference first
+    for label, m, k, n, iters in mm_cases[:1] + [
+            c for c in mm_cases if c[0].startswith(('P@W ', 'gate'))]:
+        def mm(m=m, k=k, n=n, iters=iters):
+            a, b = rand_bf16((m, k), 0), rand_bf16((k, n), 1)
+            return ProbeCase(
+                lambda: probes.mm_loop(a, b, iters),
+                lambda: probes.mm_loop_plain(a, b, iters),
+                lambda: [torch.matmul(a, b) for _ in range(iters)],
+                2 * (m * k + k * n + m * n), 2 * m * k * n * iters,
+                exact=False)
+        cases.append(('mm_loop', f'{label} x{iters}', mm))
+
+    def copy_case(x, out_shape, pieces, lanes, staged, library, tile=None,
+                  **kw):
+        nbytes = 2 * sum(p[4] for p in pieces) * lanes * x.element_size()
+        if staged:
+            def kernel():
+                return probes.block_copy_staged(x, out_shape, pieces, lanes,
+                                                tile=tile, **kw)
+        else:
+            def kernel():
+                return probes.block_copy(x, out_shape, pieces, lanes, **kw)
+        return ProbeCase(
+            kernel,
+            lambda: probes.block_copy_plain(x, out_shape, pieces, lanes,
+                                            **kw),
+            library, nbytes,
+            region=lambda out: probes.written(out, pieces, lanes))
+
+    def copy_x2(t=microbench.T, h=microbench.H, w=microbench.W,
+                c=microbench.C):
+        x = rand_bf16((t, h, w, c), 2)
+        return copy_case(x.view(t, h, w * c), (1, h, w * c),
+                         probes.slab_pieces(h, microbench.SLAB), w * c, True,
+                         lambda: torch.mul(x[0], 2.0), scale=2.0)
+    shape = (microbench.T, microbench.H, microbench.W, microbench.C)
+    cases.append(('copy_x2_staged', f'2 * x[0], x {shape}, '
+                  f'{microbench.SLAB}-row slabs', copy_x2))
+
+    def hbm():
+        x = randn_bf16((4, 128, 1024), 3)
+        y = torch.empty_like(x)
+
+        def lib():
+            y[1:, 40:80].copy_(x[:-1, 40:80])
+            y[0, 40:80].copy_(x[0, 40:80])
+        return copy_case(x, x.shape, probes.hbm_copy_pieces(4, 40, 40), 1024,
+                         False, lib)
+    cases.append(('hbm_copy', '(4,128,1024) rows 40:80 from frame t-1',
+                  hbm))
+
+    c, m = probe_chw.C, probe_chw.M
+    for row, mode, lib in (
+            ('lane_stride', 'lane', lambda x: x[:, ::2].contiguous()),
+            ('sub_stride', 'block',
+             lambda x: x.view(x.shape[0], -1, 128)[:, ::2].reshape(
+                 x.shape[0], -1)),
+            ('strided_store', 'store',
+             lambda a: F.pad(a[..., None], (0, 1)).flatten(1))):
+        def strided(mode=mode, lib=lib, c=c, m=m):
+            x = randn_bf16((c, m // 2 if mode == 'store' else m), 4)
+            out_numel = m if mode == 'store' else m // 2
+            read = x.numel() // 2 if mode == 'block' else x.numel()
+            return ProbeCase(lambda: probes.strided_copy(x, mode),
+                             lambda: probes.strided_copy_plain(x, mode),
+                             lambda: lib(x), 2 * (read + c * out_numel))
+        cases.append((row, f'({c},{m}) {mode}', strided))
+
+    t, pp, cb, lp = probe_copy_bw.JAX_SHAPE
+    shapes = [(f'JAX L1 ({t},{pp * cb},{lp}) pp {pp}', (t, pp * cb, lp),
+               pp)] + [(f'port ({t},{ch},{hw}) pp 1', (t, ch, hw), 1)
+                       for t, ch, hw in probe_copy_bw.PORT_SHAPES]
+    for staged in (False, True):
+        tiles = probe_copy_bw.N_TILES if staged else (None,)
+        for i, (label, shape, pp) in enumerate(shapes):
+            for n_tiles in (tiles if i == 0 else (None,)):
+                def perm(shape=shape, pp=pp, staged=staged, n_tiles=n_tiles):
+                    x = randn_bf16(shape, 5)
+                    t, rows, lp = shape
+                    half = rows // pp // 2
+                    lanes, tile = lp, None
+                    if n_tiles:
+                        tile = lp // n_tiles
+                        tile -= tile % 128
+                        lanes = n_tiles * tile
+                    y = torch.empty_like(x)
+                    return copy_case(
+                        x, shape, probes.shift_pieces(t, pp, rows // pp, half),
+                        lanes, staged,
+                        lambda: probe_copy_bw.copy_slices(x, y, pp, half,
+                                                          lanes), tile=tile)
+                cases.append(('permute_staged' if staged else 'permute_direct',
+                              label + (f', {n_tiles} lane tiles' if n_tiles
+                                       else ''), perm))
+
+    for row, staged, rows in (('dma_offset', True, 48),
+                              ('value_slice', False, 40)):
+        for off, lane in probe_dma_align.CASES:
+            def offset(staged=staged, rows=rows, off=off, lane=lane):
+                x = randn_bf16((1, 128, 1024), 6)
+                lanes = 1024 - 8 if lane else 1024
+                y = x.new_empty((rows, lanes))
+                return copy_case(
+                    x, (1, rows, lanes), [(0, off, 0, 0, rows)], lanes,
+                    staged,
+                    lambda: y.copy_(x[0, off:off + rows, lane:lane + lanes]),
+                    src_lane=lane)
+            cases.append((row, f'(128,1024) rows {off}:{off + rows}'
+                          + (f', lanes {lane}: ({2 * lane} B)' if lane
+                             else ''), offset))
+    return cases
+
+
+def probe_phase(card):
+    """The probe tools driven through their entry points, then each probe
+    kernel against its plain version.  Returns ({probe row: record},
+    {probe row: launches in the drive})."""
+    import torch
+    from shiftnet_tpu_torch.tools.microbench_mm import MM_TOL, mm_err
+    from shiftnet_tpu_torch.tools.timing import median_ms
+    launches = _probe_drive()
+    print(f'probes: copies bit for bit; mm_loop max|kernel - plain| / '
+          f'max|plain| <= {MM_TOL:.2e} (one bf16 ulp)', flush=True)
+    rec, failed = {}, []
+    for name, label, make in _probe_cases():
+        case = make()
+        with torch.inference_mode():
+            got, want = (case.region(case.kernel()),
+                         case.region(case.plain()))
+            torch.cuda.synchronize()
+            abs_err = float((got.double() - want.double()).abs().max())
+            if case.exact:
+                ok, err = torch.equal(got, want), abs_err
+            else:
+                err = mm_err(got, want)
+                ok = err <= MM_TOL
+            del got, want
+            ms = median_ms(case.kernel)
+            pms = median_ms(case.plain)
+            lms = None if case.library is None else median_ms(case.library)
+        t_bytes = 1e3 * case.nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * case.ops / PEAK_OPS_PER_S['bfloat16']
+        bound = max(t_bytes, t_ops)
+        rate = (f'{case.ops / ms / 1e9:.1f} TF/s' if case.ops
+                else f'{case.nbytes / ms / 1e6:.0f} GB/s')
+        print(f'probe {name:14s} {label:44s} err {err:.3e} '
+              f'{"ok" if ok else "FAIL"}  kernel {ms:.4f} ms ({rate}, '
+              f'{100 * bound / ms:.1f} % of bound)  plain {pms:.4f} ms  '
+              f'library {"none" if lms is None else f"{lms:.4f} ms"}  bound '
+              f'{bound:.4f} ms ({case.nbytes / 1e6:.2f} MB, '
+              f'{case.ops / 1e9:.1f} GFLOP)  [{card}]', flush=True)
+        if not ok:
+            failed.append(f'{name} {label}')
+        if name not in rec:  # the first case: the JAX tool's largest shape
+            rec[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=pms,
+                             library_ms=lms, bound_ms=bound,
+                             bound_by='bytes' if t_bytes >= t_ops
+                             else 'operations')
+        rec[name]['max_abs_err'] = max(rec[name]['max_abs_err'], abs_err)
+        del case
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f'probe kernels disagree with their plain '
+                             f'versions: {failed}')
+    return rec, launches
+
+
 def main():
     card = device_phase()
     build_phase()
     import torch
     rec = kernel_phase(card)
+    t0 = time.perf_counter()
+    probe_rec, probe_launches = probe_phase(card)
+    print(f'probes: phase took {time.perf_counter() - t0:.1f} s', flush=True)
     with tempfile.TemporaryDirectory() as logs:
         launches = deblur_phase(card, logs)
         launches.update(denoise_phase(card, logs))
@@ -886,6 +1169,20 @@ def main():
         if also:
             entry['also_replaces'] = also
         kernels.append(entry)
+    for name, (src, repl, counter) in PROBES.items():
+        r = probe_rec[name]
+        # ``launches``: the probes phase's drive of the tools, the path
+        # that carries the probe kernels; ``kernel``: the CUDA kernel (and
+        # launch counter) that runs this TPU kernel.
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': f'shiftnet_tpu_torch/csrc/{src}',
+                        'replaces': repl, 'kernel': counter,
+                        'launches': probe_launches[name],
+                        'launches_probes': probe_launches[name],
+                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                        'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -26,6 +26,8 @@ NVCC_FLAGS = [*ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC']
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 # C entry points: each returns the cudaError_t of its launch.
 SIGNATURES = {
     'shiftnet_cab_front': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -42,6 +44,11 @@ SIGNATURES = {
                           ctypes.c_longlong, _P],
     'shiftnet_conv_cat': [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
+    'shiftnet_mm_loop': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    'shiftnet_block_copy': [_P, _P, _LLP, _I, _I, _LL, _LL, _P],
+    'shiftnet_block_copy_staged': [_P, _P, _LLP, _I, _I, _LL, _LL, _I,
+                                   ctypes.c_float, _P],
+    'shiftnet_strided_copy': [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -143,14 +143,16 @@ def test_deblur_cli_logs_psnr_ssim(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every port module and chip_smoke import with JAX, flax and the JAX
-    package all blocked, every variant builds and its prep_naf runs, and no
-    module of the JAX package is left loaded."""
+    """Every port module (the probe tools and ``ops/probes`` among them) and
+    chip_smoke import with JAX, flax, the JAX package and the JAX package's
+    root ``tools/`` all blocked, every variant builds and its prep_naf runs,
+    and no module of the JAX package is left loaded."""
     script = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['shiftnet_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
         "import importlib, pkgutil\n"
         "import shiftnet_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -168,8 +170,11 @@ def test_port_imports_no_jax():
         "                     torch.float32, mid_ca=m.cfg.cab_mid_ca,\n"
         "                     last_bias=m.cfg.cab_last_bias)\n"
         "loaded = [k for k, v in sys.modules.items() if v is not None and\n"
-        "          (k == 'shiftnet_tpu' or k.startswith('shiftnet_tpu.'))]\n"
+        "          (k in ('shiftnet_tpu', 'tools')\n"
+        "           or k.startswith(('shiftnet_tpu.', 'tools.')))]\n"
         "assert not loaded, loaded\n"
+        "assert 'shiftnet_tpu_torch.ops.probes' in sys.modules\n"
+        "assert 'shiftnet_tpu_torch.tools.probe_copy_bw' in sys.modules\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, '-c', script], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -179,12 +184,13 @@ def test_port_imports_no_jax():
 
 
 IMPORT_OF_JAX_PACKAGE = re.compile(
-    r'^\s*(import|from)\s+shiftnet_tpu(?!_torch)\b', re.MULTILINE)
+    r'^\s*(import|from)\s+(shiftnet_tpu(?!_torch)|tools)\b', re.MULTILINE)
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """No ``import shiftnet_tpu`` / ``from shiftnet_tpu`` (other than
-    ``shiftnet_tpu_torch``) in any source of the port or in chip_smoke."""
+    ``shiftnet_tpu_torch``) and no import of the root ``tools/`` in any
+    source of the port or in chip_smoke."""
     sources = sorted((REPO / 'shiftnet_tpu_torch').rglob('*.py'))
     sources.append(REPO / 'chip_smoke.py')
     assert len(sources) >= 20
@@ -195,6 +201,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert IMPORT_OF_JAX_PACKAGE.search('from shiftnet_tpu.eval import x')
     assert IMPORT_OF_JAX_PACKAGE.search('    import shiftnet_tpu\n')
     assert not IMPORT_OF_JAX_PACKAGE.search('from shiftnet_tpu_torch import x')
+    assert IMPORT_OF_JAX_PACKAGE.search('from tools import probe_copy_bw')
+    assert IMPORT_OF_JAX_PACKAGE.search('import tools.microbench_mm')
+    assert not IMPORT_OF_JAX_PACKAGE.search(
+        'from shiftnet_tpu_torch.tools import probe_chw')
 
 
 @pytest.mark.parametrize('n_frames,one_len', [(40, 36), (100, 36), (7, 2),

@@ -8,14 +8,16 @@ The file imports no JAX, so it also runs on a machine without it:
 (``--noconftest``: ``tests/conftest.py`` imports JAX.)  Tolerances are those
 of ``chip_smoke.py``: normalized max error 1e-4 in float32 with TF32 off
 (summation order only), 5e-2 in bfloat16 (single-ulp rounding flips on the
-largest outputs).  ``shift_round`` only copies, so it is held bit for bit.
+largest outputs).  ``shift_round`` and the copy probes only copy, so they
+are held bit for bit; ``mm_loop`` sums in another order than its plain
+version, so it may round one bf16 ulp apart at its largest output.
 """
 import numpy as np
 import pytest
 import torch
 
 from shiftnet_tpu_torch.models import init_state, layers
-from shiftnet_tpu_torch.ops import chw, naf_chw
+from shiftnet_tpu_torch.ops import chw, naf_chw, probes
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -326,3 +328,114 @@ def test_naf_kernels_reject_what_they_do_not_take(cuda):
         naf_chw.naf_rep(y.half(), None, prep)
     with pytest.raises(ValueError):
         naf_chw.shift_round(y, 7, reverse=False, boundary_patch=True)
+
+
+def bf16_randn(g, *shape, device):
+    return randn(g, *shape).to(device, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', [
+    (40, 216, 24),    # N = 24, K = 216: three n8 tiles a warp, K padded
+    (24, 216, 200),   # M = 24: one partial 32-row warp tile
+    (300, 80, 160),   # the Encoder2 expand's K and N
+    (70, 30, 13),     # N padded to 16, K to 32
+    (130, 512, 8)])   # one n8 tile a warp, a 512-deep panel
+def test_mm_loop_matches_plain(cuda, m, k, n):
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.rand(m, k, generator=g).to(cuda, torch.bfloat16)
+    b = torch.rand(k, n, generator=g).to(cuda, torch.bfloat16)
+    probes.reset_launches()
+    got = probes.mm_loop(a, b, 3)
+    want = probes.mm_loop_plain(a, b, 3)
+    assert got.shape == (m, n) and probes.LAUNCHES['mm_loop'] == 1
+    err = (got.double() - want.double()).abs().max()
+    assert err <= 2.0 ** -7 * want.double().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('staged', [False, True])
+@pytest.mark.parametrize('case', ['hbm', 'shift', 'slab', 'offset',
+                                  'unaligned_src', 'unaligned_both'])
+def test_block_copies_match_plain(cuda, staged, case):
+    g = torch.Generator().manual_seed(7)
+    src_lane = 0
+    if case == 'hbm':        # tools/probe_hbm_copy.py at a small size
+        x = bf16_randn(g, 4, 64, 136, device=cuda)
+        pieces, lanes = probes.hbm_copy_pieces(4, 40, 9), 136
+        out_shape = x.shape
+    elif case == 'shift':    # the half-channel permutation, pp 2, cb 16
+        x = bf16_randn(g, 3, 32, 1000, device=cuda)
+        out_shape, pieces = x.shape, probes.shift_pieces(3, 2, 16, 8)
+        lanes = 1000
+    elif case == 'slab':     # 32-row slabs of frame 0
+        x = bf16_randn(g, 2, 96, 24 * 40, device=cuda)
+        out_shape, pieces = (1, 96, 960), probes.slab_pieces(96, 32)
+        lanes = 960
+    elif case == 'offset':   # rows 8 .. 48 of a (128, 1024) slab
+        x = bf16_randn(g, 1, 128, 1024, device=cuda)
+        out_shape, pieces, lanes = (1, 40, 1024), [(0, 8, 0, 0, 40)], 1024
+    elif case == 'unaligned_src':  # a 6-byte source offset on every row
+        x = bf16_randn(g, 1, 128, 1024, device=cuda)
+        out_shape, pieces, lanes = (1, 48, 1016), [(0, 40, 0, 0, 48)], 1016
+        src_lane = 3
+    else:  # an odd source offset, odd rows on both sides: a destination
+        # row starts off the 16-byte grid too
+        x = bf16_randn(g, 2, 20, 333, device=cuda)
+        out_shape, pieces = (2, 25, 341), [(1, 3, 0, 5, 11), (0, 0, 1, 1, 20)]
+        lanes, src_lane = 317, 5
+    probes.reset_launches()
+    kw = dict(src_lane=src_lane)
+    if staged:
+        # a ragged last tile, a slot of whole rows or of row segments, and
+        # a scale on the way out
+        got = probes.block_copy_staged(x, out_shape, pieces, lanes,
+                                       tile=max(8, lanes // 3 + 5), scale=2.0,
+                                       **kw)
+        want = probes.block_copy_plain(x.cpu(), out_shape, pieces, lanes,
+                                       scale=2.0, **kw)
+    else:
+        got = probes.block_copy(x, out_shape, pieces, lanes, **kw)
+        want = probes.block_copy_plain(x.cpu(), out_shape, pieces, lanes,
+                                       **kw)
+    assert torch.equal(probes.written(got.cpu(), pieces, lanes),
+                       probes.written(want, pieces, lanes))
+    name = 'block_copy_staged' if staged else 'block_copy'
+    assert probes.LAUNCHES[name] == 1
+
+
+@pytest.mark.cuda
+def test_block_copy_staged_wide_tile(cuda):
+    """A tile wider than a slot goes through in row segments."""
+    g = torch.Generator().manual_seed(8)
+    x = bf16_randn(g, 2, 6, 20011, device=cuda)
+    pieces = probes.shift_pieces(2, 1, 6, 3)
+    got = probes.block_copy_staged(x, x.shape, pieces, 20003, src_lane=3)
+    want = probes.block_copy_plain(x.cpu(), x.shape, pieces, 20003, 3)
+    assert torch.equal(probes.written(got.cpu(), pieces, 20003),
+                       probes.written(want, pieces, 20003))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['lane', 'block', 'store'])
+@pytest.mark.parametrize('rows,m', [(24, 2560), (5, 512)])
+def test_strided_copy_matches_plain(cuda, mode, rows, m):
+    g = torch.Generator().manual_seed(rows + m)
+    x = bf16_randn(g, rows, m, device=cuda)
+    probes.reset_launches()
+    got = probes.strided_copy(x, mode)
+    assert torch.equal(got.cpu(), probes.strided_copy_plain(x.cpu(), mode))
+    assert probes.LAUNCHES['strided_copy'] == 1
+
+
+@pytest.mark.cuda
+def test_probes_reject_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 8, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        probes.mm_loop(x[0].float(), x[0].float().t(), 1)
+    with pytest.raises(ValueError):  # rows past the source
+        probes.block_copy(x, x.shape, [(0, 4, 0, 0, 5)], 64)
+    with pytest.raises(ValueError):
+        probes.block_copy(x, x.shape, [(0, 0, 0, 0, 1)] * 129, 64)
+    with pytest.raises(ValueError):  # lanes not a multiple of 16
+        probes.strided_copy(x[0, :, :40].contiguous(), 'lane')

@@ -1,0 +1,299 @@
+"""The port's measurement probes (``shiftnet_tpu_torch/ops/probes.py``)
+against the Pallas probe kernels of the JAX package's ``tools/``, on the CPU.
+
+For rows 11, 13, 15a, 15b, 16a and 16b of PERF.md's kernel table, the JAX
+tool's own kernel body runs in TPU interpret mode, in a ``pallas_call``
+built as the tool builds it, on inputs made with numpy from a seed; the
+port's plain version (what the wrapper runs for a CPU tensor) must equal it
+bit for bit (copies) or within one bf16 ulp at the largest output
+(``mm_loop``, whose float32 sums come in another order).  The tools are
+loaded by file path; they set the JAX compilation cache at import, so the
+fixture points it at a temporary directory and restores the config after.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_kernels.py``.
+"""
+import functools
+import importlib
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from shiftnet_tpu_torch.ops import probes
+from shiftnet_tpu_torch.tools import microbench_mm as port_mm
+
+REPO = Path(__file__).resolve().parents[1]
+TOOLS = ('microbench_mm', 'probe_hbm_copy', 'probe_copy_bw',
+         'probe_dma_align')
+CONFIG_KEYS = ('jax_compilation_cache_dir',
+               'jax_persistent_cache_min_compile_time_secs')
+PORT_TOOLS = ('microbench_mm', 'microbench', 'probe_hbm_copy', 'probe_chw',
+              'probe_copy_bw', 'probe_dma_align')
+
+
+@pytest.fixture(scope='module')
+def tools(tmp_path_factory):
+    mp = pytest.MonkeyPatch()
+    mp.setenv('JAX_COMPILATION_CACHE_DIR',
+              str(tmp_path_factory.mktemp('jax_cache')))
+    saved = {k: getattr(jax.config, k) for k in CONFIG_KEYS}
+    mods = {}
+    try:
+        for name in TOOLS:
+            spec = importlib.util.spec_from_file_location(
+                f'jax_tool_{name}', REPO / 'tools' / f'{name}.py')
+            mods[name] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mods[name])
+        yield mods
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+        mp.undo()
+
+
+def bf16_bits(a) -> np.ndarray:
+    """The raw 16 bits of a bf16 JAX array or torch tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(a).view(np.uint16)
+
+
+def both(arr: np.ndarray):
+    """The same float32 numpy array as a bf16 JAX array and torch tensor."""
+    return jnp.asarray(arr, jnp.bfloat16), torch.from_numpy(arr).bfloat16()
+
+
+@pytest.mark.parametrize('m,k,n,iters', [(16, 32, 64, 3),
+                                         (24, 216, 24, 2),   # K=216, N=24
+                                         (40, 80, 160, 2)])  # c80 expand
+def test_mm_loop_matches_jax_kernel(tools, m, k, n, iters):
+    """Row 11, ``tools/microbench_mm.py:16`` ``mm_loop_kernel``."""
+    rng = np.random.default_rng(m + k + n)
+    ja, ta = both(rng.uniform(0, 1, (m, k)).astype(np.float32))
+    jb, tb = both(rng.uniform(0, 1, (k, n)).astype(np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        fn = pl.pallas_call(
+            functools.partial(tools['microbench_mm'].mm_loop_kernel,
+                              iters=iters),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
+                      pl.BlockSpec(memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((m, n), jnp.bfloat16),
+            scratch_shapes=[pltpu.VMEM((m, n), jnp.float32)])
+        want = torch.from_numpy(np.asarray(fn(ja, jb), np.float32))
+    got = probes.mm_loop(ta, tb, iters)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert port_mm.mm_err(got, want) <= port_mm.MM_TOL
+
+
+def test_hbm_copy_matches_jax_kernel(tools):
+    """Row 13, ``tools/probe_hbm_copy.py:29`` ``_copy_kernel``, at the
+    tool's own shape; only the rows it writes are compared."""
+    t, rows, c, m = 4, 40, 128, 1024
+    jx, tx = both(np.random.default_rng(0).standard_normal(
+        (t, c, m)).astype(np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        fn = pl.pallas_call(
+            functools.partial(tools['probe_hbm_copy']._copy_kernel, t=t,
+                              rows=rows, m=m),
+            grid=(t,),
+            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+            out_specs=pl.BlockSpec(memory_space=pl.ANY),
+            out_shape=jax.ShapeDtypeStruct((t, c, m), jnp.bfloat16),
+            scratch_shapes=[pltpu.SemaphoreType.DMA(())])
+        want = bf16_bits(fn(jx))[:, 40:40 + rows]
+    pieces = probes.hbm_copy_pieces(t, 40, rows)
+    got = probes.block_copy(tx, tx.shape, pieces, m)
+    np.testing.assert_array_equal(
+        bf16_bits(probes.written(got, pieces, m)), want.reshape(-1))
+
+
+@pytest.mark.parametrize('n_tiles', [1, 2])
+def test_permutation_matches_jax_kernels(tools, n_tiles):
+    """Rows 15a and 15b, ``tools/probe_copy_bw.py:45`` ``_hbm_kernel`` and
+    ``:61`` ``_vmem_kernel``, at t 3, pp 2, cb 16, half 8: direct over all
+    lanes, staged in the tool's lane tiles (the lanes past n_tiles * tl are
+    left unwritten by both and not compared)."""
+    t, pp, cb, half, lp = 3, 2, 16, 8, 320
+    tool = tools['probe_copy_bw']
+    jx, tx = both(np.random.default_rng(n_tiles).standard_normal(
+        (t, pp * cb, lp)).astype(np.float32))
+    shape = jax.ShapeDtypeStruct((t, pp * cb, lp), jnp.bfloat16)
+    any_spec = pl.BlockSpec(memory_space=pl.ANY)
+    tl = lp // n_tiles
+    tl -= tl % 128
+    with pltpu.force_tpu_interpret_mode():
+        hbm = pl.pallas_call(
+            functools.partial(tool._hbm_kernel, t=t, half=half, pp=pp,
+                              cb=cb),
+            grid=(t,), in_specs=[any_spec], out_specs=any_spec,
+            out_shape=shape, scratch_shapes=[pltpu.SemaphoreType.DMA(())])
+        vmem = pl.pallas_call(
+            functools.partial(tool._vmem_kernel, t=t, half=half, pp=pp,
+                              cb=cb, tl=tl, n_tiles=n_tiles),
+            grid=(t, n_tiles), in_specs=[any_spec], out_specs=any_spec,
+            out_shape=shape,
+            scratch_shapes=[pltpu.VMEM((2, pp * cb, tl), jnp.bfloat16),
+                            pltpu.SemaphoreType.DMA((2,)),
+                            pltpu.SemaphoreType.DMA((2,))])
+        want_hbm, want_vmem = bf16_bits(hbm(jx)), bf16_bits(vmem(jx))
+    pieces = probes.shift_pieces(t, pp, cb, half)
+    np.testing.assert_array_equal(
+        bf16_bits(probes.block_copy(tx, tx.shape, pieces, lp)), want_hbm)
+    used = n_tiles * tl
+    got = probes.block_copy_staged(tx, tx.shape, pieces, used, tile=tl)
+    np.testing.assert_array_equal(bf16_bits(got)[..., :used],
+                                  want_vmem[..., :used])
+
+
+@pytest.mark.parametrize('off', [40, 8])
+def test_dma_offset_matches_jax_kernel(tools, off):
+    """Row 16a, ``tools/probe_dma_align.py:34`` ``_dma_off_kernel``, at the
+    tool's own shape (rows 48 of a (128, 1024) slab)."""
+    rows, m = 48, 1024
+    jx, tx = both(np.random.default_rng(0).standard_normal(
+        (128, m)).astype(np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        fn = pl.pallas_call(
+            functools.partial(tools['probe_dma_align']._dma_off_kernel,
+                              off=off, rows=rows, m=m),
+            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((rows, m), jnp.bfloat16),
+            scratch_shapes=[pltpu.VMEM((rows, m), jnp.bfloat16),
+                            pltpu.SemaphoreType.DMA(())])
+        want = bf16_bits(fn(jx))
+    got = probes.block_copy_staged(tx[None], (1, rows, m),
+                                   [(0, off, 0, 0, rows)], m)
+    np.testing.assert_array_equal(bf16_bits(got[0]), want)
+
+
+@pytest.mark.parametrize('off', [40, 8])
+def test_value_slice_matches_jax_kernel(tools, off):
+    """Row 16b, ``tools/probe_dma_align.py:64`` ``_slice_kernel``, at the
+    tool's own shape (rows 40 of a (128, 1024) slab)."""
+    rows, m = 40, 1024
+    jx, tx = both(np.random.default_rng(1).standard_normal(
+        (128, m)).astype(np.float32))
+    with pltpu.force_tpu_interpret_mode():
+        fn = pl.pallas_call(
+            functools.partial(tools['probe_dma_align']._slice_kernel,
+                              off=off, rows=rows),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            out_shape=jax.ShapeDtypeStruct((rows, m), jnp.bfloat16))
+        want = bf16_bits(fn(jx))
+    got = probes.block_copy(tx[None], (1, rows, m), [(0, off, 0, 0, rows)],
+                            m)
+    np.testing.assert_array_equal(bf16_bits(got[0]), want)
+
+
+def test_copy_x2_plain_matches_numpy():
+    """Row 12, ``tools/microbench.py:126`` ``copy_kernel``, a closure in
+    the tool's ``main()`` that cannot be called alone: its statement
+    ``out[0] = buf * 2.0`` for 32-row slabs of x[0], restated in numpy (the
+    doubling of a bf16 value is exact), against the staged copy's plain
+    version at (2, 96, 8 * 24)."""
+    x = np.random.default_rng(2).standard_normal((2, 96, 8 * 24)).astype(
+        np.float32)
+    tx = torch.from_numpy(x).bfloat16()
+    pieces = probes.slab_pieces(96, 32)
+    got = probes.block_copy_staged(tx, (1, 96, 192), pieces, 192, scale=2.0)
+    want = torch.from_numpy(tx.float().numpy()[:1] * 2.0).bfloat16()
+    np.testing.assert_array_equal(bf16_bits(got), bf16_bits(want))
+
+
+@pytest.mark.parametrize('mode', ['lane', 'block', 'store'])
+def test_strided_plain_matches_numpy(mode):
+    """Rows 14a-c, ``tools/probe_chw.py:119`` ``k_lane_stride``, ``:135``
+    ``k_sub_stride`` and ``:152`` ``k_store``, closures in the tool's
+    ``probe_stride()`` that cannot be called alone: on the tool's input,
+    x = arange(24 * 2560) in bf16, the references the tool checks against
+    (``x[:, ::2]``; ``out[:, ::2] == a`` over ``zeros_like``) and the
+    sublane slice it states, restated in numpy."""
+    c, m = 24, 2560
+    x = np.arange(c * m, dtype=np.float32).reshape(c, m)
+    xb = torch.from_numpy(x).bfloat16()
+    xn = xb.float().numpy()
+    if mode == 'lane':
+        got, want = probes.strided_copy(xb, 'lane'), xn[:, ::2]
+    elif mode == 'block':
+        got = probes.strided_copy(xb, 'block')
+        want = xn.reshape(c, m // 128, 128)[:, ::2].reshape(c, m // 2)
+    else:
+        a = xb[:, :m // 2].contiguous()
+        got = probes.strided_copy(a, 'store')
+        want = np.zeros((c, m), np.float32)
+        want[:, ::2] = xn[:, :m // 2]
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_piece_lists_match_numpy():
+    """The wrapper's pieces and their element offsets: the wrap at t = 0
+    (frame 0 reads frame T - 1 in the permutation, itself in the HBM copy),
+    and a source 6 bytes into its rows and destination rows of an odd
+    length, neither on the 16-byte grid, indexed into the flattened tensors
+    as the kernels index."""
+    assert probes.hbm_copy_pieces(3, 40, 5) == [
+        (0, 40, 0, 40, 5), (0, 40, 1, 40, 5), (1, 40, 2, 40, 5)]
+    assert probes.shift_pieces(2, 2, 6, 3) == [
+        (1, 3, 0, 0, 3), (0, 0, 0, 3, 3), (1, 9, 0, 6, 3), (0, 6, 0, 9, 3),
+        (0, 3, 1, 0, 3), (1, 0, 1, 3, 3), (0, 9, 1, 6, 3), (1, 6, 1, 9, 3)]
+    assert probes.slab_pieces(100, 32) == [
+        (0, 0, 0, 0, 32), (0, 32, 0, 32, 32), (0, 64, 0, 64, 32)]
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 12, 37)).astype(np.float32)
+    tx = torch.from_numpy(x).bfloat16()
+    out_shape, lanes, src_lane = (2, 9, 41), 29, 3
+    pieces = [(2, 4, 0, 1, 7), (0, 0, 1, 0, 9)]
+    table = probes.piece_table('test', tx, out_shape, pieces, lanes,
+                               src_lane)
+    got = probes.block_copy_staged(tx, out_shape, pieces, lanes, tile=8,
+                                   src_lane=src_lane)
+    flat_x, flat_out = x.reshape(-1), got.float().numpy().reshape(-1)
+    xb = tx.float().numpy()
+    for (sf, sr, df, dr, rows), (src, dst, n) in zip(
+            pieces, np.reshape(table, (-1, 3))):
+        assert n == rows
+        for i in range(rows):
+            want = xb[sf, sr + i, src_lane:src_lane + lanes]
+            s0, d0 = src + i * x.shape[2], dst + i * out_shape[2]
+            np.testing.assert_array_equal(
+                flat_x[s0:s0 + lanes].astype(np.float32),
+                x[sf, sr + i, src_lane:src_lane + lanes])
+            np.testing.assert_array_equal(flat_out[d0:d0 + lanes], want)
+        assert src % 8 != 0 or dst % 8 != 0  # not 16-byte aligned
+    with pytest.raises(ValueError):  # a piece past the source's rows
+        probes.piece_table('test', tx, out_shape, [(0, 8, 0, 0, 5)], lanes)
+    with pytest.raises(ValueError):  # lanes past the source's
+        probes.piece_table('test', tx, out_shape, pieces, 35, src_lane)
+    with pytest.raises(ValueError):  # lanes past the output's
+        probes.piece_table('test', tx, (2, 9, 30), pieces, 31)
+
+
+def test_mm_layout_fits_every_case():
+    """Every product the microbench_mm tool runs has a layout whose panels
+    fit in shared memory and whose warp tiles cover N padded to 8."""
+    for _, m, k, n, _ in port_mm.cases():
+        nf, wm, wn = probes.mm_layout(m, k, n)
+        kp = -(-k // 16) * 16
+        assert 1 <= nf <= 4 and 1 <= wm * wn <= 8
+        assert probes.mm_smem(32 * wm, kp, 8 * nf * wn) <= 232448
+        assert nf == 4 or 8 * nf >= n
+
+
+@pytest.mark.parametrize('name', PORT_TOOLS)
+def test_probe_tools_need_cuda(name, monkeypatch):
+    """Each probe CLI refuses to measure without a CUDA device."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    tool = importlib.import_module(f'shiftnet_tpu_torch.tools.{name}')
+    args = ([],) if name == 'probe_chw' else ()  # not pytest's argv
+    with pytest.raises(SystemExit, match='needs a CUDA device'):
+        tool.main(*args)
