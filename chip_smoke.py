@@ -9,15 +9,18 @@ Phases, each of which must pass:
    is no CPU path: without a CUDA device the run fails.
 2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
    nine model kernels and the four probe kernels) into one library (one
-   nvcc per source, in parallel).
+   nvcc per source, in parallel), then count the tensor-core (``HMMA``)
+   instructions in the SASS of the ``cab_front`` and ``conv`` kernels, both
+   types (``cuobjdump -sass``): every instantiation must have some.
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
    depthwise naf_rep at n = 64 on its own row), in float32 (TF32 off) and
    bfloat16,
-   with median times over 20 runs, the least time the card could take for
-   the same work (``bound_ms``) and, where one PyTorch call computes the
-   same function, that call's time (``library_ms``).
+   with median times over 20 runs, the achieved rate of the kernels that
+   compute (TF/s: their operations over their time), the least time the
+   card could take for the same work (``bound_ms``) and, where one PyTorch
+   call computes the same function, that call's time (``library_ms``).
 4. deblur: the port's default ``Evaluator('deblur_plus')`` (bf16,
    ``fused_chw``: the main path) on a seeded 40x720x1280 window through
    ``forward_window``, with every kernel's launches counted against the
@@ -56,6 +59,8 @@ every driven path, its error, its times and its bound; the last line is
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -85,7 +90,8 @@ HALO = 2
 ONE_LEN = 36
 H, W = 720, 1280
 # Published H100 SXM rates (NVIDIA data sheet): device memory, and the
-# dense peak for the operands' type (bf16 tensor cores; float32 CUDA cores).
+# dense peak for the operands' type (bf16 on the tensor cores; float32 outside
+# them, the data sheet's float32 rate, also for 3xTF32 kernels).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {'bfloat16': 989e12, 'float32': 67e12}
 # Kernel launches of one deblur_plus window on the fused_chw path: 10 TFR
@@ -187,6 +193,30 @@ def device_phase():
     return card
 
 
+# The kernel templates that run on the tensor cores (mma.sync), by name in
+# the SASS: every instantiation must hold HMMA instructions.
+MMA_KERNELS = ('cab_front_mma_kernel', 'conv_mma_kernel')
+
+
+def _hmma_counts(lib):
+    """{kernel template: [HMMA count of each instantiation]} from the SASS
+    of the built library (``cuobjdump -sass``)."""
+    tool = shutil.which('cuobjdump') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {name: [] for name in MMA_KERNELS}
+    current = None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            current = next((n for n in MMA_KERNELS if n in line), None)
+            if current:
+                counts[current].append(0)
+        elif current and 'HMMA' in line:
+            counts[current][-1] += 1
+    return counts
+
+
 def build_phase():
     from shiftnet_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -194,6 +224,13 @@ def build_phase():
     _build.library()
     dt = time.perf_counter() - t0
     print(f'build: {path.name} ready in {dt:.2f} s', flush=True)
+    for name, counts in _hmma_counts(path).items():
+        print(f'build: {name}: {len(counts)} instantiations, HMMA '
+              f'instructions in SASS {sum(counts)} (each {counts})',
+              flush=True)
+        if not counts or min(counts) == 0:
+            raise AssertionError(f'{name}: an instantiation has no '
+                                 'tensor-core instruction')
     return dt
 
 
@@ -229,6 +266,11 @@ def _max_tol(dtn, tail):
     if dtn == 'bfloat16':
         return max(TOL[dtn], BF16_ULP * tail)
     return TOL[dtn]
+
+
+def _rate(ops, ms):
+    """`` (x TF/s)`` for a kernel that computes, else empty."""
+    return f' ({ops / ms / 1e9:.1f} TF/s)' if ops else ''
 
 
 def _outputs(out):
@@ -455,6 +497,7 @@ def _small_cases(arr, wgt, unit, naf_prep):
     then the other kernels at the widths these variants add (TFR widths 14,
     18 and 22, Encoder2 width 64, add_c 32)."""
     import torch
+    import torch.nn.functional as F
     from shiftnet_tpu_torch.ops import chw, naf_chw
 
     cases = []
@@ -471,7 +514,8 @@ def _small_cases(arr, wgt, unit, naf_prep):
         cases.append(('naf_rep_depthwise',
                       f'n={n} {h}x{w}{" cag" if opts else ""}', rep))
 
-    for c, hc, wc in ((14, H, W), (18, H // 2, W // 2), (64, h, w)):
+    for c, hc, wc in ((14, H, W), (18, H // 2, W // 2), (22, H // 4, W // 4),
+                      (64, h, w)):
         def front(rng, dt, c=c, hc=hc, wc=wc):
             x = arr(rng, (T_CHECK, c, hc, wc), dt)
             w1, w2 = wgt(rng, (c, c, 3, 3), dt), wgt(rng, (c, c, 3, 3), dt)
@@ -485,16 +529,20 @@ def _small_cases(arr, wgt, unit, naf_prep):
     for cin, cout, k, st, pre, hc, wc in (
             (14, 64, 2, 2, True, H, W),             # down01
             (64, 56, 3, 1, False, h, w),            # upsample_conv
-            (14, 14, 3, 1, False, H, W)):           # add-fuse conv_hr0
+            (14, 14, 3, 1, False, H, W),            # add-fuse conv_hr0
+            (3, 14, 3, 1, False, H, W),             # feat_extract
+            (14, 3, 5, 1, False, H, W)):            # conv_last
         def cv(rng, dt, cin=cin, cout=cout, k=k, st=st, pre=pre, hc=hc,
                wc=wc):
             x = arr(rng, (T_CHECK, cin, hc, wc), dt)
             wt = wgt(rng, (cout, cin, k, k), dt)
             a = torch.full((1,), 0.25, device='cuda') if pre else None
             n_out = T_CHECK * (hc // st) * (wc // st)
+            lib = None if pre else (
+                lambda: F.conv2d(x, wt, None, st, chw.conv_pad(k, st)))
             return Case(lambda: chw.conv(x, wt, None, a, st),
                         lambda: chw.conv_plain(x, wt, None, a, st),
-                        [x, wt, a], 2 * k * k * cin * cout * n_out)
+                        [x, wt, a], 2 * k * k * cin * cout * n_out, lib)
         cases.append(('conv', f'{cin}->{cout} k{k} s{st}'
                       f'{" prelu" if pre else ""} {hc}x{wc}', cv))
 
@@ -581,7 +629,8 @@ def kernel_phase(card):
             print(f'kernel {name:11s} {label:36s} {dtn:8s} err {err:.3e} '
                   f'(tol {tol:.2e}) mean {mean_err:.2e} '
                   f'{"ok" if ok else "FAIL"}  kernel '
-                  f'{ms:.3f} ms  plain {pms:.3f} ms  library '
+                  f'{ms:.3f} ms{_rate(case.ops, ms)}  plain {pms:.3f} ms  '
+                  f'library '
                   f'{"none" if lms is None else f"{lms:.3f} ms"}  bound '
                   f'{bound:.3f} ms ({nbytes / 1e6:.1f} MB, '
                   f'{case.ops / 1e9:.1f} GFLOP)  [{card}]', flush=True)

@@ -7,112 +7,86 @@
 //
 // One block covers one frame and one TH x TW output tile.  It stages the
 // input tile with a 2-pixel halo in shared memory (zero outside the image),
-// computes conv1 + PReLU on the tile plus a 1-pixel halo into a second
-// shared buffer, and sets that intermediate to zero wherever it lies outside
-// the image: each reference conv zero-pads its own input, so conv1 evaluated
-// at image row -1 must not leak into conv2.  conv2 then writes s, and the
-// block writes the channel sums of its tile (of s as stored, in float32) to
-// its own row of a (T, n_blocks, C) buffer: no atomics, so the sums are
-// deterministic, and the caller reduces the buffer.
+// computes conv1 + PReLU (in float32, one cast) on the tile plus a 1-pixel
+// halo into a second shared buffer, and sets that intermediate to zero
+// wherever it lies outside the image: each reference conv zero-pads its own
+// input, so conv1 evaluated at image row -1 must not leak into conv2.
+// conv2 then writes s, and the block writes the channel sums of its tile
+// (of s as stored, in float32, in a fixed order) to its own row of a
+// (T, n_blocks, C) buffer: no atomics, so the sums are deterministic, and
+// the caller reduces the buffer.
 //
-// Shared memory per block: C * ((TH+4)(TW+4) + (TH+2)(TW+2)) + 16 elements.
-// At 16 x 16 that is 724 C + 16: 69.5 KB at C = 48 in bf16, 139 KB in f32;
-// C = 80 (Encoder2's CABs) takes 116 KB in bf16 and 231,744 B in f32, just
-// under the 232,448 B a block may use.  The wrapper (ops/chw.py,
-// cab_front_tile) drops to 8 x 16 where 16 x 16 does not fit.
+// What bounds it: arithmetic, 18 C^2 multiply-adds per output pixel (plus
+// conv1's halo), against 2 C values a pixel in and out.
 //
-// What bounds it: arithmetic, 18 C^2 multiply-adds per output pixel on the
-// CUDA cores (no tensor cores yet).  The design keeps both convs' inputs in
-// shared memory (x is read from device memory once, and the intermediate
-// never goes there), and gives each thread 8 output channels of 4 adjacent
-// pixels: per input channel and tap it loads 8 weights as two 16-byte
-// loads (the wrapper lays the weights out as float32 [Cin][9][Cout]) and 6
-// activations per row from shared memory, for 32 multiply-adds, so the
-// loads no longer bound the loop.  Tensor-core (wgmma) tiles are later
-// work.
-#include "common.cuh"
+// Both convs run on the tensor cores (cab_front_mma_kernel): conv_core.cuh's
+// implicit GEMM on mma.sync, bfloat16 products in bfloat16 and 3xTF32 in
+// float32.  The input tile and the intermediate are pixel-major
+// ([pixel][mma_pitch(C)]), so a tap is a row offset; conv1's epilogue
+// writes the intermediate straight into the layout conv2's fragments read,
+// and conv2's epilogue writes s channel-major over the dead input tile,
+// whence it goes to device memory in 16-byte stores and into the sums.
+// The weights are packed on the host as [9][Np][KP] in the activations'
+// type (ops/chw.py, pack_taps); panels stream one tap at a time where the
+// whole conv does not fit in kResidentBytes.  The wrapper picks the tile
+// per C and type (ops/chw.py, cab_front_tile).
+#include "conv_core.cuh"
 
 namespace shiftnet {
 
-constexpr int kCabCob = 8;     // output channels per thread
-constexpr int kCabPx = 4;      // adjacent output pixels per thread
-constexpr int kCabThreads = 192;
-// A thread's last 4-pixel chunk may run past its row; the extra reads land
-// in the next row or, at the end of a buffer, in this slack.
-constexpr int kCabSlack = 16;
+constexpr int kSbufPad = 8;  // s tile: channel planes TH * TW + 8 apart
 
-// 3x3 conv over a shared-memory tile src[C][SH][SW]: output (r, q) of an
-// OH x OW region reads src rows r..r+2, columns q..q+2.  wt holds float32
-// weights [C][9][Cp], Cp = C rounded up to kCabCob, zero-padded.  Calls
-// epi(co, r, q, acc) for every output channel co < C and position.
-template <typename T, typename Epi>
-__device__ __forceinline__ void conv3x3_smem(const T* src, int SH, int SW,
-                                             const float* __restrict__ wt,
-                                             int C, int Cp, int OH, int OW,
-                                             Epi epi) {
-  const int nchunk = (OW + kCabPx - 1) / kCabPx;
-  const int npos = OH * nchunk;
-  const int items = (Cp / kCabCob) * npos;
-  const int plane = SH * SW;
-  for (int i = threadIdx.x; i < items; i += blockDim.x) {
-    const int g = i / npos;
-    const int p = i - g * npos;
-    const int r = p / nchunk;
-    const int q0 = (p - r * nchunk) * kCabPx;
-    float acc[kCabCob][kCabPx];
-#pragma unroll
-    for (int j = 0; j < kCabCob; ++j)
-#pragma unroll
-      for (int u = 0; u < kCabPx; ++u) acc[j][u] = 0.f;
-    const T* sp = src + r * SW + q0;
-    const float* wp = wt + g * kCabCob;
-    for (int ci = 0; ci < C; ++ci) {
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        float v[kCabPx + 2];
-#pragma unroll
-        for (int u = 0; u < kCabPx + 2; ++u) v[u] = to_f(sp[ky * SW + u]);
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4* w4 =
-              reinterpret_cast<const float4*>(wp + (ci * 9 + ky * 3 + kx) * Cp);
-          const float4 wa = w4[0], wb = w4[1];
-          const float w[kCabCob] = {wa.x, wa.y, wa.z, wa.w,
-                                    wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int j = 0; j < kCabCob; ++j)
-#pragma unroll
-            for (int u = 0; u < kCabPx; ++u)
-              acc[j][u] = fmaf(w[j], v[u + kx], acc[j][u]);
-        }
-      }
-      sp += plane;
-    }
-#pragma unroll
-    for (int j = 0; j < kCabCob; ++j) {
-      const int co = g * kCabCob + j;
-      if (co >= C) break;
-#pragma unroll
-      for (int u = 0; u < kCabPx; ++u)
-        if (q0 + u < OW) epi(co, r, q0 + u, acc[j][u]);
-    }
-  }
-}
+// m16 fragments a warp holds per pass in conv1 and conv2, sized so that
+// each conv of the tile ops/chw.py picks is one pass, or nearly, where the
+// registers allow (tools/bench_conv.py --tiles measured each choice): the
+// wide forms (two warp columns, up to 5 n8 tiles each) take 3 in conv1, so
+// an 8 x 16 tile's 10 x 18 conv1 region (12 fragments) is one pass of
+// 4 x 3; the narrow ones take 5 and 4 in bfloat16 (C <= 24 at 16 x 32: 39
+// and 32 fragments over 8 warps) and 3 and 2 in float32 (C <= 16 at 8 x 32:
+// 22 and 16 fragments; at C = 24 the split fragments leave no room).
+template <typename T, int NTW, int WN>
+struct CabMfw {
+  static constexpr bool wide = WN == 2 && NTW <= 5;
+  static constexpr bool narrow = WN == 1 && NTW <= (sizeof(T) == 2 ? 3 : 2);
+  static constexpr int conv1 =
+      narrow ? (sizeof(T) == 2 ? 5 : 3) : (wide ? 3 : 2);
+  static constexpr int conv2 = narrow && sizeof(T) == 2 ? 4 : 2;
+};
 
 template <typename T>
-__global__ void cab_front_kernel(const T* __restrict__ x,
-                                 const float* __restrict__ w1,
-                                 const float* __restrict__ alpha,
-                                 const float* __restrict__ w2,
-                                 T* __restrict__ s, float* __restrict__ sums,
-                                 int C, int Cp, int H, int W, int TH, int TW,
-                                 int tiles_x) {
+__host__ __device__ inline size_t cab_front_smem(int C, int Np, int KP,
+                                                 int TH, int TW) {
+  return ((size_t)(TH + 4) * (TW + 4) + (size_t)(TH + 2) * (TW + 2)) *
+             core::mma_pitch<T>(C) * sizeof(T) +
+         core::weight_smem<T>(9, Np, KP);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// Two blocks an SM in bfloat16 (128 registers a thread); float32's tiles
+// take one.
+template <typename T, int NTW, int WN>
+__global__ void __launch_bounds__(core::kThreads, sizeof(T) == 2 ? 2 : 1)
+    cab_front_mma_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                         const float* __restrict__ alpha,
+                         const T* __restrict__ w2, T* __restrict__ s,
+                         float* __restrict__ sums, int C, int Np, int KP,
+                         int H, int W, int TH, int TW, int tiles_x) {
+  constexpr int CH = core::chunk<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int IH = TH + 4, IW = TW + 4;  // input tile, 2-pixel halo
   const int MH = TH + 2, MW = TW + 2;  // intermediate, 1-pixel halo
+  const int sp = core::mma_pitch<T>(C), kc = core::pad_chunk<T>(C);
   T* xin = reinterpret_cast<T*>(smem_raw);
-  T* mid = xin + (size_t)C * IH * IW;
-  T* sbuf = xin;  // s tile for the sums; reuses xin once conv1 is done
+  T* mid = xin + (size_t)IH * IW * sp;
+  T* wbuf = mid + (size_t)MH * MW * sp;
+  T* sbuf = xin;  // s, channel-major; reuses xin once conv1 is done
+  const int sbp = TH * TW + kSbufPad;
 
   const int t = blockIdx.z;
   const int tile = blockIdx.x;
@@ -120,49 +94,59 @@ __global__ void cab_front_kernel(const T* __restrict__ x,
   const int y0 = (tile / tiles_x) * TH;
   const int x0 = (tile % tiles_x) * TW;
   const size_t plane = (size_t)H * W;
-  const T* xt = x + (size_t)t * C * plane;
 
-  for (int i = threadIdx.x; i < C * IH * IW; i += blockDim.x) {
-    const int c = i / (IH * IW);
-    const int rq = i - c * IH * IW;
-    const int gy = y0 - 2 + rq / IW;
-    const int gx = x0 - 2 + rq % IW;
-    T v = from_f<T>(0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = xt[c * plane + (size_t)gy * W + gx];
-    xin[i] = v;
-  }
-  __syncthreads();
-
+  core::stage_tile(xin, sp, x + (size_t)t * C * plane, C, H, W, y0 - 2,
+                   x0 - 2, IH, IW);
   const float a = alpha[0];
-  // conv1 + PReLU on the tile plus its 1-pixel halo; zero outside the image.
-  conv3x3_smem<T>(xin, IH, IW, w1, C, Cp, MH, MW,
-                  [&](int co, int r, int q, float acc) {
-                    const int gy = y0 - 1 + r, gx = x0 - 1 + q;
-                    const bool in_image = gy >= 0 && gy < H && gx >= 0 && gx < W;
-                    mid[(co * MH + r) * MW + q] =
-                        in_image ? from_f<T>(prelu(acc, a)) : from_f<T>(0.f);
-                  });
+  // conv1 + PReLU on the tile plus its 1-pixel halo; zero outside the
+  // image, and in the channels past C (their weights are zero).
+  core::conv_tile<T, NTW, WN, CabMfw<T, NTW, WN>::conv1>(
+      xin, sp, kc, w1, wbuf, 3, IW, Np, KP, MH * MW,
+      [&](int p) { return (p / MW) * IW + p % MW; },
+      [&](int p, int co, float v0, float v1) {
+        if (co >= kc) return;
+        const int gy = y0 - 1 + p / MW, gx = x0 - 1 + p % MW;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        store2(mid + (size_t)p * sp + co, in ? prelu(v0, a) : 0.f,
+               in ? prelu(v1, a) : 0.f);
+      });
+  // conv2 into the s tile (zero outside the image).
+  core::conv_tile<T, NTW, WN, CabMfw<T, NTW, WN>::conv2>(
+      mid, sp, kc, w2, wbuf, 3, MW, Np, KP, TH * TW,
+      [&](int p) { return (p / TW) * MW + p % TW; },
+      [&](int p, int co, float v0, float v1) {
+        const int r = p / TW;
+        const bool in = y0 + r < H && x0 + p - r * TW < W;
+        if (co < C) sbuf[co * sbp + p] = from_f<T>(in ? v0 : 0.f);
+        if (co + 1 < C) sbuf[(co + 1) * sbp + p] = from_f<T>(in ? v1 : 0.f);
+      });
   __syncthreads();
 
-  // conv2 into s; the tile's values also go to sbuf (zero outside the image).
   T* st = s + (size_t)t * C * plane;
-  conv3x3_smem<T>(mid, MH, MW, w2, C, Cp, TH, TW,
-                  [&](int co, int r, int q, float acc) {
-                    const bool in_image = y0 + r < H && x0 + q < W;
-                    const T v = in_image ? from_f<T>(acc) : from_f<T>(0.f);
-                    sbuf[(co * TH + r) * TW + q] = v;
-                    if (in_image)
-                      st[co * plane + (size_t)(y0 + r) * W + (x0 + q)] = v;
-                  });
-  __syncthreads();
+  if (W % CH == 0) {  // rows and tile columns on the 16-byte grid
+    const int qv = TW / CH, items = C * TH * qv;
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int c = i / (TH * qv), rem = i - c * TH * qv;
+      const int r = rem / qv, q = (rem - r * qv) * CH;
+      if (y0 + r < H && x0 + q < W)
+        *reinterpret_cast<uint4*>(st + c * plane + (size_t)(y0 + r) * W +
+                                  x0 + q) =
+            *reinterpret_cast<const uint4*>(sbuf + c * sbp + r * TW + q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < C * TH * TW; i += blockDim.x) {
+      const int c = i / (TH * TW), p = i - c * TH * TW;
+      const int r = p / TW, q = p - r * TW;
+      if (y0 + r < H && x0 + q < W)
+        st[c * plane + (size_t)(y0 + r) * W + x0 + q] = sbuf[c * sbp + p];
+    }
+  }
 
   // Per-channel tile sums in a fixed order: one warp per channel.
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int c = warp; c < C; c += nwarps) {
+  for (int c = warp; c < C; c += core::kWarps) {
     float part = 0.f;
-    for (int p = lane; p < TH * TW; p += 32) part += to_f(sbuf[(size_t)c * TH * TW + p]);
+    for (int p = lane; p < TH * TW; p += 32) part += to_f(sbuf[c * sbp + p]);
     part = warp_sum(part);
     if (lane == 0) sums[((size_t)t * n_blocks + tile) * C + c] = part;
   }
@@ -171,38 +155,47 @@ __global__ void cab_front_kernel(const T* __restrict__ x,
 template <typename T>
 static int launch_cab_front(const void* x, const void* w1, const void* alpha,
                             const void* w2, void* s, void* sums, int T_,
-                            int C, int Cp, int H, int W, int TH, int TW,
-                            cudaStream_t stream) {
+                            int C, int Np, int KP, int H, int W, int TH,
+                            int TW, cudaStream_t stream) {
   const int tiles_x = (W + TW - 1) / TW;
   const int tiles_y = (H + TH - 1) / TH;
-  const size_t smem =
-      ((size_t)C * ((TH + 4) * (TW + 4) + (TH + 2) * (TW + 2)) + kCabSlack) *
-      sizeof(T);
-  cudaFuncSetAttribute(cab_front_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid(tiles_x * tiles_y, 1, T_);
-  cab_front_kernel<T><<<grid, kCabThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(alpha), static_cast<const float*>(w2),
-      static_cast<T*>(s), static_cast<float*>(sums), C, Cp, H, W, TH, TW,
-      tiles_x);
-  return (int)cudaGetLastError();
+  const int sp = core::mma_pitch<T>(C);
+  // The s tile must fit over the input tile, and rows be 16-byte vectors.
+  if (KP != sp || Np < core::pad_chunk<T>(C) || TW % 8 != 0 ||
+      (size_t)C * (TH * TW + kSbufPad) > (size_t)(TH + 4) * (TW + 4) * sp)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = cab_front_smem<T>(C, Np, KP, TH, TW);
+  return core::dispatch_np(Np, [&](auto ntw, auto wn) {
+    auto kern =
+        cab_front_mma_kernel<T, decltype(ntw)::value, decltype(wn)::value>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(tiles_x * tiles_y, 1, T_);
+    kern<<<grid, core::kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w1),
+        static_cast<const float*>(alpha), static_cast<const T*>(w2),
+        static_cast<T*>(s), static_cast<float*>(sums), C, Np, KP, H, W, TH,
+        TW, tiles_x);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace shiftnet
 
-// w1, w2: float32 [C][9][Cp] (ops/chw.py, _taps_major); alpha: float32.
+// w1, w2: packed [9][Np][KP] in x's type (ops/chw.py, pack_taps), KP =
+// mma_pitch(C); alpha: float32.
 extern "C" int shiftnet_cab_front(int dtype, const void* x, const void* w1,
                                   const void* alpha, const void* w2, void* s,
-                                  void* sums, int T, int C, int Cp, int H,
-                                  int W, int TH, int TW, void* stream) {
+                                  void* sums, int T, int C, int Np, int KP,
+                                  int H, int W, int TH, int TW,
+                                  void* stream) {
   using namespace shiftnet;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_cab_front<__nv_bfloat16>(x, w1, alpha, w2, s, sums, T, C, Cp,
-                                           H, W, TH, TW, st);
+    return launch_cab_front<__nv_bfloat16>(x, w1, alpha, w2, s, sums, T, C,
+                                           Np, KP, H, W, TH, TW, st);
   if (dtype == kF32)
-    return launch_cab_front<float>(x, w1, alpha, w2, s, sums, T, C, Cp, H, W,
-                                   TH, TW, st);
+    return launch_cab_front<float>(x, w1, alpha, w2, s, sums, T, C, Np, KP,
+                                   H, W, TH, TW, st);
   return (int)cudaErrorInvalidValue;
 }

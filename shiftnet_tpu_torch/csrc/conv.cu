@@ -3,157 +3,123 @@
 // single cast to the output type.  Padding follows the TPU kernel's rule:
 // k // 2 at stride 1, and at stride 2 one pixel for K = 3, none otherwise.
 //
-// Replaces shiftnet_tpu/ops/chw.py:_down_kernel (conv_chw / down_chw).  On
-// the TFR U-Net path it runs the stride-2 3x3 DownSample convs with bias
-// (24 -> 36 and 36 -> 48 channels).
+// Replaces shiftnet_tpu/ops/chw.py:_down_kernel (conv_chw / down_chw).  It
+// runs every standalone conv of the four variants: the TFR DownSamples,
+// feat_extract, conv_trans, down01, Encoder2's DownSamples, upsample_conv,
+// conv_hr0, rconcat and conv_last (Cin 3-80, Cout 3-96).
 //
-// One block covers one frame, a 16 x 16 output tile and COB = 8 output
-// channels; each thread owns one output pixel and keeps its 8 sums in
-// registers.  Input channels go through shared memory in chunks of 8: the
-// input tile with its halo (zero outside the image) and the matching
-// weights, in float32.
+// What bounds it: arithmetic, K^2 Cin Cout multiply-adds per output pixel,
+// against (Cin S^2 + Cout) * 2 bytes a pixel in and out; the narrow convs
+// (Cin or Cout 3) sit near the memory bound.
 //
-// What bounds it: arithmetic on the CUDA cores, K^2 Cin multiply-adds per
-// output value, each with one shared-memory weight load broadcast to the
-// warp.  On this path the convs are a small share of the TFR's work (about
-// 2 % of its multiply-adds), so the simple form stays until a measurement
-// says otherwise.
-#include "common.cuh"
+// It runs on the tensor cores (conv_mma_kernel, conv_core.cuh's implicit
+// GEMM on mma.sync; bfloat16 products in bfloat16, 3xTF32 in float32).
+// One block covers one frame, a TH x TW output tile and all output
+// channels (Cout padded to Np, up to 112): the input tile with its halo is
+// staged once, pixel-major, and the taps and the stride are only row
+// addresses of the A fragments.  Weights come packed [K*K][Np][KP] in the
+// activations' type (ops/chw.py, pack_taps); Cin = 3 pads to one half step
+// a tap and Cout = 3 to one n8 tile, both on the same core.  The epilogue
+// adds the bias, applies the PReLU in float32 and stores each value once.
+#include "conv_core.cuh"
 
 namespace shiftnet {
 
-constexpr int kConvTile = 16;
-constexpr int kConvCob = 8;
-constexpr int kConvCic = 8;
-
-template <typename T, int K, int S>
-__global__ void conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            const float* __restrict__ bias,
-                            const float* __restrict__ alpha,
-                            T* __restrict__ out, int Cin, int Cout, int H,
-                            int W, int Ho, int Wo, int pad, int tiles_x,
-                            int co_groups) {
-  constexpr int IT = (kConvTile - 1) * S + K;  // input tile edge with halo
-  __shared__ float xs[kConvCic][IT][IT];
-  __shared__ float ws[kConvCob][kConvCic][K * K];
-
-  const int t = blockIdx.z;
-  const int cog = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int oy0 = (tile / tiles_x) * kConvTile;
-  const int ox0 = (tile % tiles_x) * kConvTile;
-  const int iy0 = oy0 * S - pad, ix0 = ox0 * S - pad;
-  const int ty = threadIdx.x / kConvTile, tx = threadIdx.x % kConvTile;
-  const int co0 = cog * kConvCob;
-  const size_t plane = (size_t)H * W;
-  const T* xt = x + (size_t)t * Cin * plane;
-
-  float acc[kConvCob];
-#pragma unroll
-  for (int j = 0; j < kConvCob; ++j) acc[j] = 0.f;
-
-  for (int ci0 = 0; ci0 < Cin; ci0 += kConvCic) {
-    for (int i = threadIdx.x; i < kConvCic * IT * IT; i += blockDim.x) {
-      const int c = i / (IT * IT);
-      const int rq = i - c * IT * IT;
-      const int gy = iy0 + rq / IT, gx = ix0 + rq % IT;
-      float v = 0.f;
-      if (ci0 + c < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = to_f(xt[(ci0 + c) * plane + (size_t)gy * W + gx]);
-      xs[c][rq / IT][rq % IT] = v;
-    }
-    for (int i = threadIdx.x; i < kConvCob * kConvCic * K * K; i += blockDim.x) {
-      const int j = i / (kConvCic * K * K);
-      const int rem = i - j * kConvCic * K * K;
-      const int c = rem / (K * K), k = rem % (K * K);
-      float v = 0.f;
-      if (co0 + j < Cout && ci0 + c < Cin)
-        v = to_f(w[((size_t)(co0 + j) * Cin + ci0 + c) * K * K + k]);
-      ws[j][c][k] = v;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int c = 0; c < kConvCic; ++c) {
-#pragma unroll
-      for (int ky = 0; ky < K; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < K; ++kx) {
-          const float v = xs[c][ty * S + ky][tx * S + kx];
-#pragma unroll
-          for (int j = 0; j < kConvCob; ++j)
-            acc[j] = fmaf(ws[j][c][ky * K + kx], v, acc[j]);
-        }
-    }
-    __syncthreads();
-  }
-
-  const int oy = oy0 + ty, ox = ox0 + tx;
-  if (oy >= Ho || ox >= Wo) return;
-  const float a = alpha ? alpha[0] : 0.f;
-  const size_t oplane = (size_t)Ho * Wo;
-  T* ot = out + (size_t)t * Cout * oplane + (size_t)oy * Wo + ox;
-#pragma unroll
-  for (int j = 0; j < kConvCob; ++j) {
-    const int co = co0 + j;
-    if (co >= Cout) break;
-    float v = acc[j];
-    if (bias) v += bias[co];
-    if (alpha) v = prelu(v, a);
-    ot[co * oplane] = from_f<T>(v);
-  }
+template <typename T>
+__host__ __device__ inline size_t conv_smem(int Cin, int K, int S, int Np,
+                                            int KP, int TH, int TW) {
+  return (size_t)((TH - 1) * S + K) * ((TW - 1) * S + K) *
+             core::mma_pitch<T>(Cin) * sizeof(T) +
+         core::weight_smem<T>(K * K, Np, KP);
 }
 
-template <typename T, int K, int S>
-static int launch_conv_ks(const void* x, const void* w, const void* bias,
-                          const void* alpha, void* out, int T_, int Cin,
-                          int Cout, int H, int W, int pad,
-                          cudaStream_t stream) {
-  const int Ho = (H + 2 * pad - K) / S + 1;
-  const int Wo = (W + 2 * pad - K) / S + 1;
-  const int tiles_x = (Wo + kConvTile - 1) / kConvTile;
-  const int tiles_y = (Ho + kConvTile - 1) / kConvTile;
-  const int co_groups = (Cout + kConvCob - 1) / kConvCob;
-  dim3 grid(tiles_x * tiles_y, co_groups, T_);
-  conv_kernel<T, K, S><<<grid, kConvTile * kConvTile, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(alpha),
-      static_cast<T*>(out), Cin, Cout, H, W, Ho, Wo, pad, tiles_x, co_groups);
-  return (int)cudaGetLastError();
+template <typename T, int NTW, int WN>
+__global__ void __launch_bounds__(core::kThreads, sizeof(T) == 2 ? 2 : 1)
+    conv_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ alpha, T* __restrict__ out,
+                    int Cin, int Cout, int H, int W, int Ho, int Wo, int K,
+                    int S, int pad, int Np, int KP, int TH, int TW,
+                    int tiles_x) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int IH = (TH - 1) * S + K, IW = (TW - 1) * S + K;
+  const int sp = core::mma_pitch<T>(Cin);
+  T* xin = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = xin + (size_t)IH * IW * sp;
+
+  const int t = blockIdx.z;
+  const int tile = blockIdx.x;
+  const int oy0 = (tile / tiles_x) * TH;
+  const int ox0 = (tile % tiles_x) * TW;
+  core::stage_tile(xin, sp, x + (size_t)t * Cin * H * W, Cin, H, W,
+                   oy0 * S - pad, ox0 * S - pad, IH, IW);
+  const float a = alpha ? alpha[0] : 0.f;
+  const size_t oplane = (size_t)Ho * Wo;
+  T* ot = out + (size_t)t * Cout * oplane;
+  core::conv_tile<T, NTW, WN, 2>(
+      xin, sp, core::pad_chunk<T>(Cin), w, wbuf, K, IW, Np, KP, TH * TW,
+      [&](int p) { return (p / TW) * S * IW + (p % TW) * S; },
+      [&](int p, int co, float v0, float v1) {
+        const int r = p / TW;
+        const int oy = oy0 + r, ox = ox0 + p - r * TW;
+        if (oy >= Ho || ox >= Wo) return;
+        const float v[2] = {v0, v1};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (co + u >= Cout) break;
+          float y = v[u];
+          if (bias) y += bias[co + u];
+          if (alpha) y = prelu(y, a);
+          ot[(co + u) * oplane + (size_t)oy * Wo + ox] = from_f<T>(y);
+        }
+      });
 }
 
 template <typename T>
 static int launch_conv(const void* x, const void* w, const void* bias,
-                       const void* alpha, void* out, int T_, int Cin, int Cout,
-                       int H, int W, int K, int S, cudaStream_t st) {
+                       const void* alpha, void* out, int T_, int Cin,
+                       int Cout, int H, int W, int K, int S, int Np, int KP,
+                       int TH, int TW, cudaStream_t stream) {
   const int pad = S == 1 ? K / 2 : (K == 3 ? 1 : 0);
-#define SHIFTNET_CONV_CASE(KK, SS)                                          \
-  if (K == KK && S == SS)                                                   \
-    return launch_conv_ks<T, KK, SS>(x, w, bias, alpha, out, T_, Cin, Cout, \
-                                     H, W, pad, st);
-  SHIFTNET_CONV_CASE(2, 1)
-  SHIFTNET_CONV_CASE(2, 2)
-  SHIFTNET_CONV_CASE(3, 1)
-  SHIFTNET_CONV_CASE(3, 2)
-  SHIFTNET_CONV_CASE(5, 1)
-  SHIFTNET_CONV_CASE(5, 2)
-#undef SHIFTNET_CONV_CASE
-  return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - K) / S + 1;
+  const int Wo = (W + 2 * pad - K) / S + 1;
+  if (KP != core::mma_pitch<T>(Cin) || Np < core::pad_chunk<T>(Cout) ||
+      (K != 2 && K != 3 && K != 5) || (S != 1 && S != 2))
+    return (int)cudaErrorInvalidValue;
+  const int tiles_x = (Wo + TW - 1) / TW;
+  const int tiles_y = (Ho + TH - 1) / TH;
+  const size_t smem = conv_smem<T>(Cin, K, S, Np, KP, TH, TW);
+  return core::dispatch_np(Np, [&](auto ntw, auto wn) {
+    auto kern = conv_mma_kernel<T, decltype(ntw)::value, decltype(wn)::value>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    dim3 grid(tiles_x * tiles_y, 1, T_);
+    kern<<<grid, core::kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(alpha),
+        static_cast<T*>(out), Cin, Cout, H, W, Ho, Wo, K, S, pad, Np, KP, TH,
+        TW, tiles_x);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace shiftnet
 
-// bias and alpha are float32 device pointers, or null when absent.
+// w packed [K*K][Np][KP] in x's type (ops/chw.py, pack_taps), KP =
+// mma_pitch(Cin), output tile TH x TW.  bias and alpha are float32 device
+// pointers, or null when absent.
 extern "C" int shiftnet_conv(int dtype, const void* x, const void* w,
                              const void* bias, const void* alpha, void* out,
                              int T, int Cin, int Cout, int H, int W, int K,
-                             int S, void* stream) {
+                             int S, int Np, int KP, int TH, int TW,
+                             void* stream) {
   using namespace shiftnet;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_conv<__nv_bfloat16>(x, w, bias, alpha, out, T, Cin, Cout, H,
-                                      W, K, S, st);
+    return launch_conv<__nv_bfloat16>(x, w, bias, alpha, out, T, Cin, Cout,
+                                      H, W, K, S, Np, KP, TH, TW, st);
   if (dtype == kF32)
-    return launch_conv<float>(x, w, bias, alpha, out, T, Cin, Cout, H, W, K, S,
-                              st);
+    return launch_conv<float>(x, w, bias, alpha, out, T, Cin, Cout, H, W, K,
+                              S, Np, KP, TH, TW, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,9 +31,10 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 # C entry points: each returns the cudaError_t of its launch.
 SIGNATURES = {
     'shiftnet_cab_front': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _P],
+                           _I, _I, _P],
     'shiftnet_cab_back': [_I, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
-    'shiftnet_conv': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    'shiftnet_conv': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P],
     'shiftnet_up_skip': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'shiftnet_shift_round': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'shiftnet_naf_gate': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

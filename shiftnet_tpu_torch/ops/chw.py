@@ -78,31 +78,96 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return F.prelu(x, alpha.to(x.dtype))
 
 
+# -- the tensor-core conv layout (csrc/conv_core.cuh) -------------------------
+
+# Shared memory of the SM (228 KB) and what the card reserves per block: a
+# block of at most TWO_PER_SM bytes lets two blocks share an SM.
+SM_SMEM_BYTES = 233472
+TWO_PER_SM = SM_SMEM_BYTES // 2 - 1024
+# A conv's weight panels are kept whole in shared memory up to this size,
+# else streamed one tap at a time, double-buffered (kResidentBytes).
+RESIDENT_BYTES = 40960
+
+
+def pad_chunk(c: int, itemsize: int) -> int:
+    """Channels rounded up to a 16-byte chunk: 8 in bfloat16, 4 in
+    float32."""
+    ch = 16 // itemsize
+    return -(-c // ch) * ch
+
+
+def mma_pitch(c: int, itemsize: int) -> int:
+    """Row length (elements) of a pixel-major tile or a weight panel row
+    with c channels: ``pad_chunk``, plus a chunk where that is an even
+    number of 16-byte units, so the 8 rows of one ldmatrix fall in distinct
+    bank groups (``mma_pitch`` in conv_core.cuh)."""
+    p = pad_chunk(c, itemsize)
+    return p if (p * itemsize // 16) % 2 else p + 16 // itemsize
+
+
+def mma_layout(c_in: int, c_out: int, itemsize: int) -> tuple[int, int]:
+    """(Np, KP) of the packed weights of a c_in -> c_out conv: output
+    channel rows padded to whole n8 tiles on one warp column (up to 7
+    tiles) or on two, and the panel row length (``dispatch_np``)."""
+    nt = -(-c_out // 8)
+    np_ = 8 * nt if nt <= 7 else 16 * -(-nt // 2)
+    if np_ > 112:
+        raise ValueError(f'conv: Cout={c_out} exceeds the 112 channels of '
+                         'the tensor-core form')
+    return np_, mma_pitch(c_in, itemsize)
+
+
+def pack_taps(w: torch.Tensor, np_: int, kp: int) -> torch.Tensor:
+    """(Cout, Cin, K, K) -> (K*K, np_, kp): one panel per tap (ky * K + kx),
+    output channels on the rows, input channels along them, zero-padded;
+    the B operand of the tensor-core convs, in w's type."""
+    c_out, c_in, k, _ = w.shape
+    wt = w.permute(2, 3, 0, 1).reshape(k * k, c_out, c_in)
+    return F.pad(wt, (0, kp - c_in, 0, np_ - c_out)).contiguous()
+
+
+def mma_weight_smem(taps: int, np_: int, kp: int, itemsize: int) -> int:
+    """Shared memory of a conv's panels: whole, or two streamed taps."""
+    whole = taps * np_ * kp * itemsize
+    return whole if whole <= RESIDENT_BYTES else 2 * np_ * kp * itemsize
+
+
+def _pick_tile(tiles, smem, itemsize: int) -> tuple[int, int]:
+    """bfloat16: the first tile that lets two blocks share an SM (its
+    kernels take at most 128 registers a thread), else the first that fits
+    one block; float32 (3xTF32's split fragments take more than 128
+    registers a thread at the wide widths): the first that fits."""
+    for limit in ((TWO_PER_SM, SMEM_BYTES) if itemsize == 2
+                  else (SMEM_BYTES,)):
+        for tile in tiles:
+            if smem(*tile) <= limit:
+                return tile
+    raise ValueError('no tile fits in shared memory')
+
+
 # -- A: cab_front ------------------------------------------------------------
+
+# Every output tile cab_front takes, in bfloat16's order of preference;
+# float32 prefers them in _CAB_F32 order (tools/bench_conv.py --tiles
+# measures both).
+CAB_TILES = ((16, 32), (16, 16), (8, 32), (8, 16))
+_CAB_F32 = ((8, 32), (8, 16), (16, 16))
+
 
 def cab_front_smem(c: int, itemsize: int, th: int, tw: int) -> int:
     """Shared memory of one ``cab_front`` block (csrc/cab_front.cu): the
-    input tile with a 2-pixel halo, the intermediate with a 1-pixel halo,
-    and 16 elements of slack."""
-    return (c * ((th + 4) * (tw + 4) + (th + 2) * (tw + 2)) + 16) * itemsize
+    pixel-major input tile with a 2-pixel halo and intermediate with a
+    1-pixel halo, at ``mma_pitch(c)``, and the weight panels."""
+    tiles = (th + 4) * (tw + 4) + (th + 2) * (tw + 2)
+    return (tiles * mma_pitch(c, itemsize) * itemsize
+            + mma_weight_smem(9, *mma_layout(c, c, itemsize), itemsize))
 
 
 def cab_front_tile(c: int, itemsize: int) -> tuple[int, int]:
-    """Output tile (TH, TW) of ``cab_front``: the largest that fits in
-    shared memory."""
-    for th, tw in ((16, 16), (8, 16), (8, 8)):
-        if cab_front_smem(c, itemsize, th, tw) <= SMEM_BYTES:
-            return th, tw
-    raise ValueError(f'cab_front: C={c} does not fit in shared memory')
-
-
-def _taps_major(w: torch.Tensor, cp: int) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) -> float32 (Cin, 9, cp), output channels last and
-    zero-padded to cp: the layout ``cab_front`` loads 8 channels at a time
-    from."""
-    c_out, c_in = w.shape[:2]
-    wt = w.float().permute(1, 2, 3, 0).reshape(c_in, 9, c_out)
-    return F.pad(wt, (0, cp - c_out)).contiguous()
+    """Output tile (TH, TW) of ``cab_front`` (``_pick_tile``)."""
+    return _pick_tile(CAB_TILES if itemsize == 2 else _CAB_F32,
+                      lambda th, tw: cab_front_smem(c, itemsize, th, tw),
+                      itemsize)
 
 
 def cab_front_plain(x, w1, alpha, w2):
@@ -111,10 +176,12 @@ def cab_front_plain(x, w1, alpha, w2):
 
 
 def cab_front(x: torch.Tensor, w1: torch.Tensor, alpha: torch.Tensor,
-              w2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+              w2: torch.Tensor, *, tile: tuple[int, int] | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """CAB body conv3x3 -> PReLU -> conv3x3 (bias-free).
 
     x: (T, C, H, W); w1, w2: (C, C, 3, 3) in x's type; alpha: (1,) float32.
+    ``tile``: the kernel's output tile, else ``cab_front_tile``'s.
     Returns s (T, C, H, W) and its float32 channel sums (T, C).
     """
     if not _on_cuda(x):
@@ -123,17 +190,21 @@ def cab_front(x: torch.Tensor, w1: torch.Tensor, alpha: torch.Tensor,
     t, c, h, w = x.shape
     if w1.shape != (c, c, 3, 3) or w2.shape != (c, c, 3, 3):
         raise ValueError(f'cab_front: weights {w1.shape} {w2.shape} for C={c}')
-    th, tw = cab_front_tile(c, x.element_size())
+    size = x.element_size()
+    th, tw = tile or cab_front_tile(c, size)
+    if cab_front_smem(c, size, th, tw) > SMEM_BYTES or tw % 8:
+        raise ValueError(f'cab_front: tile {th}x{tw} at C={c}: not a tile '
+                         'the kernel takes')
     n_blocks = -(-h // th) * -(-w // tw)
-    cp = -(-c // 8) * 8
-    w1t, w2t = _taps_major(w1, cp), _taps_major(w2, cp)
+    np_, kp = mma_layout(c, c, size)
+    w1t, w2t = pack_taps(w1, np_, kp), pack_taps(w2, np_, kp)
     s = torch.empty_like(x)
     part = torch.empty((t, n_blocks, c), device=x.device, dtype=torch.float32)
     lib = _build.library()
     _build.check(lib.shiftnet_cab_front(
         code, x.data_ptr(), w1t.data_ptr(), alpha.data_ptr(), w2t.data_ptr(),
-        s.data_ptr(), part.data_ptr(), t, c, cp, h, w, th, tw, _stream()),
-        'cab_front')
+        s.data_ptr(), part.data_ptr(), t, c, np_, kp, h, w, th, tw,
+        _stream()), 'cab_front')
     LAUNCHES['cab_front'] += 1
     return s, part.sum(dim=1)
 
@@ -196,12 +267,41 @@ def conv_plain(x, w, bias, alpha, stride):
     return y.to(x.dtype)
 
 
+# Every output tile conv takes, in the order of preference of bfloat16 and
+# of float32 at stride 1; float32 at stride 2, with its 4x larger input
+# tile, prefers 8 x 16.
+CONV_TILES = ((16, 16), (8, 16), (8, 8))
+
+
+def conv_smem(c_in: int, c_out: int, k: int, stride: int, th: int, tw: int,
+              itemsize: int) -> int:
+    """Shared memory of one ``conv`` block (csrc/conv.cu): the pixel-major
+    input tile of a th x tw output tile, with its halo, and the weight
+    panels."""
+    ih, iw = (th - 1) * stride + k, (tw - 1) * stride + k
+    return (ih * iw * mma_pitch(c_in, itemsize) * itemsize
+            + mma_weight_smem(k * k, *mma_layout(c_in, c_out, itemsize),
+                              itemsize))
+
+
+def conv_tile(c_in: int, c_out: int, k: int, stride: int,
+              itemsize: int) -> tuple[int, int]:
+    """Output tile (TH, TW) of ``conv`` (``_pick_tile``)."""
+    tiles = CONV_TILES
+    if itemsize == 4 and stride == 2:
+        tiles = ((8, 16), (16, 16), (8, 8))
+    return _pick_tile(tiles, lambda th, tw: conv_smem(
+        c_in, c_out, k, stride, th, tw, itemsize), itemsize)
+
+
 def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
-         alpha: torch.Tensor | None, stride: int = 1) -> torch.Tensor:
+         alpha: torch.Tensor | None, stride: int = 1, *,
+         tile: tuple[int, int] | None = None) -> torch.Tensor:
     """Direct KxK conv (K in 2, 3, 5; stride 1 or 2) with optional float32
     bias and PReLU slope, both applied in float32 before the cast.
 
-    x: (T, Cin, H, W); w: (Cout, Cin, K, K) in x's type."""
+    x: (T, Cin, H, W); w: (Cout, Cin, K, K) in x's type.  ``tile``: the
+    kernel's output tile, else ``conv_tile``'s."""
     if not _on_cuda(x):
         return conv_plain(x, w, bias, alpha, stride)
     code = _check('conv', x, w, f32=(bias, alpha))
@@ -213,13 +313,21 @@ def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     pad = conv_pad(k, stride)
     ho = (h + 2 * pad - k) // stride + 1
     wo = (wd + 2 * pad - k) // stride + 1
+    size = x.element_size()
+    np_, kp = mma_layout(cin, cout, size)
+    th, tw = tile or conv_tile(cin, cout, k, stride, size)
+    if conv_smem(cin, cout, k, stride, th, tw, size) > SMEM_BYTES:
+        raise ValueError(f'conv: tile {th}x{tw} does not fit in shared '
+                         'memory')
     out = torch.empty((t, cout, ho, wo), device=x.device, dtype=x.dtype)
     lib = _build.library()
+    wp = pack_taps(w, np_, kp)
     _build.check(lib.shiftnet_conv(
-        code, x.data_ptr(), w.data_ptr(),
+        code, x.data_ptr(), wp.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if alpha is None else alpha.data_ptr(),
-        out.data_ptr(), t, cin, cout, h, wd, k, stride, _stream()), 'conv')
+        out.data_ptr(), t, cin, cout, h, wd, k, stride, np_, kp, th, tw,
+        _stream()), 'conv')
     LAUNCHES['conv'] += 1
     return out
 

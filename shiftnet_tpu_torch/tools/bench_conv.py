@@ -1,0 +1,146 @@
+"""Times of the ``cab_front`` and ``conv`` kernels at the main path's shapes,
+beside their plain versions, cuDNN and their bounds.
+
+  python -m shiftnet_tpu_torch.tools.bench_conv [--tiles] [--f32]
+
+Each shape is one that ``chip_smoke.py``'s kernel phase checks (T = 4,
+seeded inputs made on the card): for each, the kernel's median time, its
+rate (the convs' multiply-adds, 2 operations each, over that time), the
+plain version's time (two cuDNN convs and a PReLU for ``cab_front``), one
+``F.conv2d`` of the same conv where one call computes it, and the bound:
+the larger of the bytes over 3.35 TB/s and the operations over the
+type's peak.  ``--tiles`` also times the kernels at every output
+tile of ``CAB_TILES`` / ``CONV_TILES`` that fits, the default pick marked
+``*``; ``--f32`` adds the float32 forms (with ``--tiles``, at every tile
+too).
+
+The script reads only the ops' public functions, so it also times an
+older checkout of the port: ``PYTHONPATH=<checkout> python
+shiftnet_tpu_torch/tools/bench_conv.py`` (without ``--tiles``, which needs
+this checkout's tile arguments).  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+import torch.nn.functional as F
+
+from shiftnet_tpu_torch.ops import chw
+from shiftnet_tpu_torch.tools.timing import card, median_ms, require_cuda
+
+H, W, T = 720, 1280, 4
+PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM = 3.35e12
+# cab_front: (C, h, w): the TFR widths of the big and small variants, and
+# Encoder2's widths at H/2.
+CAB_SHAPES = ((24, H, W), (36, H // 2, W // 2), (48, H // 4, W // 4),
+              (80, H // 2, W // 2), (14, H, W), (18, H // 2, W // 2),
+              (22, H // 4, W // 4), (64, H // 2, W // 2))
+# conv: (cin, cout, k, stride, bias, prelu, h, w), each main-path conv.
+CONV_SHAPES = (
+    (24, 36, 3, 2, True, False, H, W),             # TFR down12
+    (36, 48, 3, 2, True, False, H // 2, W // 2),   # TFR down23
+    (24, 24, 3, 1, False, True, H // 2, W // 2),
+    (24, 3, 5, 1, False, False, H, W),             # conv_last
+    (3, 24, 3, 1, True, False, H, W),              # feat_extract
+    (24, 80, 2, 2, False, True, H, W),             # down01
+    (80, 96, 3, 1, True, False, H // 2, W // 2),   # upsample_conv
+    (72, 24, 3, 1, True, False, H, W),             # rconcat
+    (14, 64, 2, 2, False, True, H, W),             # small: down01
+    (64, 56, 3, 1, False, False, H // 2, W // 2),  # small: upsample_conv
+    (14, 14, 3, 1, False, False, H, W),            # small: conv_hr0
+    (3, 14, 3, 1, True, False, H, W),              # small: feat_extract
+    (14, 3, 5, 1, False, False, H, W),             # small: conv_last
+)
+
+
+def _randn(shape, seed, dtype, scale=1.0):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g, device='cuda')).to(dtype)
+
+
+def _line(label, ms, ops, nbytes, dtype, plain, lib, tag):
+    bound = max(1e3 * nbytes / HBM, 1e3 * ops / PEAK[dtype])
+    print(f'{label:40s} {str(dtype)[6:]:8s} {tag:7s} {ms:8.3f} ms '
+          f'{ops / ms / 1e9:7.1f} TF/s | plain {plain:7.3f} | library '
+          f'{"none" if lib is None else f"{lib:.3f}"} | bound {bound:.3f} '
+          f'ms', flush=True)
+
+
+def bench_cab(dtype, tiles):
+    for c, h, w in CAB_SHAPES:
+        x = _randn((T, c, h, w), c, dtype)
+        w1 = _randn((c, c, 3, 3), c + 1, dtype, (9 * c) ** -0.5)
+        w2 = _randn((c, c, 3, 3), c + 2, dtype, (9 * c) ** -0.5)
+        alpha = torch.full((1,), 0.25, device='cuda')
+        ops = 2 * 2 * 9 * c * c * T * h * w
+        nbytes = 2 * x.numel() * x.element_size()
+        plain = median_ms(lambda: chw.cab_front_plain(x, w1, alpha, w2))
+        label = f'cab_front C={c} {h}x{w}'
+        runs = [('', {})]
+        if tiles:
+            size = x.element_size()
+            pick = chw.cab_front_tile(c, size)
+            runs = [(f'{th}x{tw}{"*" if (th, tw) == pick else ""}',
+                     dict(tile=(th, tw))) for th, tw in chw.CAB_TILES
+                    if chw.cab_front_smem(c, size, th, tw) <= chw.SMEM_BYTES]
+        for tag, kw in runs:
+            ms = median_ms(lambda: chw.cab_front(x, w1, alpha, w2, **kw))
+            _line(label, ms, ops, nbytes, dtype, plain, None, tag)
+        del x
+
+
+def bench_conv(dtype, tiles):
+    for i, (cin, cout, k, st, bias, pre, h, w) in enumerate(CONV_SHAPES):
+        x = _randn((T, cin, h, w), i, dtype)
+        wt = _randn((cout, cin, k, k), 100 + i, dtype, (k * k * cin) ** -0.5)
+        b = _randn((cout,), 200 + i, torch.float32, 0.01) if bias else None
+        a = torch.full((1,), 0.25, device='cuda') if pre else None
+        pad = chw.conv_pad(k, st)
+        ho, wo = (h + 2 * pad - k) // st + 1, (w + 2 * pad - k) // st + 1
+        ops = 2 * k * k * cin * cout * T * ho * wo
+        nbytes = (x.numel() + T * cout * ho * wo) * x.element_size()
+        plain = median_ms(lambda: chw.conv_plain(x, wt, b, a, st))
+        lib = None
+        if not pre:
+            bl = None if b is None else b.to(dtype)
+            lib = median_ms(lambda: F.conv2d(x, wt, bl, st, pad))
+        label = (f'conv {cin}->{cout} k{k} s{st}{" bias" if bias else ""}'
+                 f'{" prelu" if pre else ""} {h}x{w}')
+        runs = [('', {})]
+        if tiles:
+            size = x.element_size()
+            pick = chw.conv_tile(cin, cout, k, st, size)
+            runs = [(f'{th}x{tw}{"*" if (th, tw) == pick else ""}',
+                     dict(tile=(th, tw))) for th, tw in chw.CONV_TILES
+                    if chw.conv_smem(cin, cout, k, st, th, tw, size)
+                    <= chw.SMEM_BYTES]
+        for tag, kw in runs:
+            ms = median_ms(lambda: chw.conv(x, wt, b, a, st, **kw))
+            _line(label, ms, ops, nbytes, dtype, plain, lib, tag)
+        del x
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--tiles', action='store_true',
+                    help='time the kernels at every tile that fits')
+    ap.add_argument('--f32', action='store_true',
+                    help='also time the float32 forms')
+    args = ap.parse_args(argv)
+    require_cuda('bench_conv')
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f'bench_conv: T={T}, {card()}, torch {torch.__version__}',
+          flush=True)
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if args.f32
+                                          else ()):
+            bench_cab(dtype, args.tiles)
+            bench_conv(dtype, args.tiles)
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

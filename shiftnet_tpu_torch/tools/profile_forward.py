@@ -20,7 +20,8 @@ the port's ``Evaluator.forward_window`` once to warm up, then:
 2. once under ``torch.profiler``, printing the wall time, the device-busy
    share of it (the union of kernel intervals), the device time of the
    port's kernels (``ops/chw``, ``ops/naf_chw``) against everything else,
-   and the top kernels.
+   each port kernel's time, launches and share of the kernel time (every
+   instantiation and form of it summed), and the top kernels.
 
 Needs a CUDA device.
 """
@@ -41,9 +42,18 @@ from shiftnet_tpu_torch.eval.runner import (CONFIG_OVERRIDES, Evaluator,
                                             configuration)
 from shiftnet_tpu_torch.models import build_model, init_state
 
-OUR_KERNELS = ('cab_front_kernel', 'cab_back_kernel', 'conv_kernel',
-               'up_skip_kernel', 'shift_round_kernel', 'naf_gate_kernel',
-               'naf_rep_kernel', 'naf_back_kernel', 'conv_cat_kernel')
+OUR_KERNELS = ('cab_front', 'cab_back', 'conv', 'up_skip', 'shift_round',
+               'naf_gate', 'naf_rep', 'naf_back', 'conv_cat')
+# A CUDA kernel's name -> the port kernel it belongs to (cab_front and conv
+# launch <name>_mma_kernel, the others <name>_kernel).
+_PORT_NAME = re.compile(r'shiftnet::(\w+?)(?:_mma)?_kernel\b')
+
+
+def port_kernel(name: str) -> str | None:
+    m = _PORT_NAME.search(name)
+    return m.group(1) if m and m.group(1) in OUR_KERNELS else None
+
+
 WINDOWS = {'deblur_plus': ((40, 720, 1280, 3), None),
            'deblur_small': ((40, 720, 1280, 3), None),
            'denoise_plus': ((16, 480, 848, 3), 10.0 / 255.0),
@@ -132,13 +142,23 @@ def profile_config(variant: str, overrides: dict, state,
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     dev_us = sum(v[0] for v in by_name.values())
-    ours_us = sum(v[0] for k, v in by_name.items()
-                  if any(s in k for s in OUR_KERNELS))
+    by_port: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for kname, (us, n) in by_name.items():
+        port = port_kernel(kname)
+        if port:
+            by_port[port][0] += us
+            by_port[port][1] += n
+    ours_us = sum(v[0] for v in by_port.values())
     print(f'wall {wall:.3f} s; device busy {busy_us / 1e6:.3f} s '
           f'({100 * busy_us / 1e6 / wall:.1f} % of wall, idle '
           f'{100 - 100 * busy_us / 1e6 / wall:.1f} %); kernel time '
           f'{dev_us / 1e6:.3f} s, port kernels {ours_us / 1e6:.3f} s '
           f'({100 * ours_us / max(dev_us, 1):.1f} %)')
+    print('port kernels (all forms and instantiations):')
+    for port, (us, n) in sorted(by_port.items(), key=lambda kv: -kv[1][0]):
+        print(f'{us / 1e3:12.2f} ms {n:6d}x  {100 * us / max(dev_us, 1):5.1f} '
+              f'%  {port}')
+    print('top kernels:')
     for kname, (us, n) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:TOP]:
         print(f'{us / 1e3:12.2f} ms {n:6d}x  {kname[:100]}', flush=True)

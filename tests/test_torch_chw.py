@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from shiftnet_tpu.models import layers as jl
@@ -217,12 +218,74 @@ def test_cpu_tensors_take_the_plain_path_without_counting():
 
 
 def test_cab_front_tile_fits_shared_memory():
-    for c in (24, 36, 48, 80):
+    """Every CAB width of the four variants, in bfloat16 and float32: the
+    tile fits a block's shared memory, the s tile fits over the input tile
+    and its rows are 16-byte vectors (csrc/cab_front.cu); in bfloat16 two
+    blocks share an SM."""
+    for c in (14, 18, 22, 24, 36, 48, 64, 80):
         for itemsize in (2, 4):
             th, tw = chw.cab_front_tile(c, itemsize)
             assert chw.cab_front_smem(c, itemsize, th, tw) <= chw.SMEM_BYTES
-    assert chw.cab_front_tile(80, 4) == (16, 16)
-    assert chw.cab_front_tile(96, 4) == (8, 16)
+            assert tw % 8 == 0
+            assert c * (th * tw + 8) <= (th + 4) * (tw + 4) * chw.mma_pitch(
+                c, itemsize)
+        assert chw.cab_front_smem(c, 2, *chw.cab_front_tile(c, 2)) <= (
+            chw.TWO_PER_SM)
+    assert [chw.cab_front_tile(c, 2) for c in (14, 24, 36, 48, 64, 80)] == [
+        (16, 32), (16, 32), (16, 16), (16, 16), (8, 16), (8, 16)]
+    assert chw.cab_front_tile(80, 4) == (8, 16)
+    with pytest.raises(ValueError, match='no tile'):
+        chw.cab_front_tile(112, 4)
+
+
+# (Cin, Cout, K, stride) of every conv the variants run on the kernels, then
+# the CAB convs (C -> C, 3x3) at every CAB width.
+CONV_SHAPES = [(24, 36, 3, 2), (36, 48, 3, 2), (24, 24, 3, 1), (24, 3, 5, 1),
+               (3, 24, 3, 1), (4, 24, 3, 1), (24, 80, 2, 2), (14, 64, 2, 2),
+               (80, 96, 3, 1), (64, 56, 3, 1), (72, 24, 3, 1), (14, 14, 3, 1),
+               (80, 80, 3, 2), (64, 64, 3, 2), (3, 14, 3, 1), (14, 3, 5, 1)]
+CAB_SHAPES = [(c, c, 3, 1) for c in (14, 18, 22, 24, 36, 48, 64, 80)]
+
+
+@pytest.mark.parametrize('itemsize', [2, 4])
+@pytest.mark.parametrize('cin,cout,k,stride', CONV_SHAPES + CAB_SHAPES)
+def test_packed_taps_rebuild_the_conv(cin, cout, k, stride, itemsize):
+    """The tensor-core kernels' weight panels (``pack_taps``, at the
+    bfloat16 and the float32 panel widths): a conv rebuilt from them as a
+    sum over taps of shifted matmuls, over the input zero-padded to the
+    panel width, equals ``F.conv2d``; the padding rows and columns are
+    zero, and a panel row is an odd number of 16-byte units."""
+    rng = np.random.default_rng(cin * 100 + cout + k)
+    x = torch.from_numpy(rng.standard_normal((2, cin, 9, 13)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((cout, cin, k, k))
+                          / np.sqrt(k * k * cin)).astype(np.float32))
+    np_, kp = chw.mma_layout(cin, cout, itemsize)
+    assert np_ >= cout and kp >= cin and (kp * itemsize // 16) % 2 == 1
+    packed = chw.pack_taps(w, np_, kp)
+    assert packed.shape == (k * k, np_, kp) and packed.is_contiguous()
+    assert not packed[:, cout:].any() and not packed[:, :, cin:].any()
+    pad = chw.conv_pad(k, stride)
+    want = F.conv2d(x, w, stride=stride, padding=pad)
+    ho, wo = want.shape[2:]
+    xp = F.pad(x, (pad, pad, pad, pad))
+    xp = F.pad(xp, (0, 0, 0, 0, 0, kp - cin))  # channels to the panel width
+    got = torch.zeros(2, np_, ho, wo)
+    for tap in range(k * k):
+        ky, kx = divmod(tap, k)
+        win = xp[:, :, ky:ky + (ho - 1) * stride + 1:stride,
+                 kx:kx + (wo - 1) * stride + 1:stride]
+        got += torch.einsum('tchw,nc->tnhw', win, packed[tap])
+    assert not got[:, cout:].any()
+    assert norm_err(got[:, :cout].numpy(), want.numpy()) < TOL
+
+
+@pytest.mark.parametrize('cin,cout,k,stride', CONV_SHAPES)
+def test_conv_tile_fits_shared_memory(cin, cout, k, stride):
+    for itemsize in (2, 4):
+        th, tw = chw.conv_tile(cin, cout, k, stride, itemsize)
+        assert chw.conv_smem(cin, cout, k, stride, th, tw,
+                             itemsize) <= chw.SMEM_BYTES
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

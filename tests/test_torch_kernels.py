@@ -47,7 +47,11 @@ def randn(g, *shape, scale=1.0):
                                    (80, 21, 45),  # ragged edge tiles
                                    # the small variants' TFR widths, not
                                    # multiples of 8
-                                   (14, 19, 37), (18, 33, 20), (22, 21, 45)])
+                                   (14, 19, 37), (18, 33, 20), (22, 21, 45),
+                                   # the small variants' Encoder2 width; rows
+                                   # of 16-byte vectors (W % 8 == 0) and not
+                                   (64, 37, 70), (64, 24, 48), (24, 35, 70),
+                                   (80, 16, 40)])
 def test_cab_front_and_back_match_plain(cuda, dtype, c, h, w):
     g = torch.Generator().manual_seed(c)
     x = randn(g, 3, c, h, w).to(cuda, dtype)
@@ -127,6 +131,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     (64, 64, 3, 2, True, False),   # down12
     (64, 56, 3, 1, True, False),   # upsample_conv
     (14, 14, 3, 1, False, False),  # deblur_small's add-fuse conv_hr0
+    (24, 36, 3, 2, True, False),   # TFR down12
+    (36, 48, 3, 2, True, False),   # TFR down23
+    (24, 24, 3, 1, False, True),   # conv_trans with its PReLU
+    (24, 3, 5, 1, False, False),   # conv_last
 ])
 def test_conv_encoder2_shapes_match_plain(cuda, dtype, cin, cout, k, stride,
                                           bias, prelu):
@@ -137,6 +145,80 @@ def test_conv_encoder2_shapes_match_plain(cuda, dtype, cin, cout, k, stride,
     a = torch.tensor([0.3], device=cuda) if prelu else None
     assert norm_err(chw.conv(x, wt, b, a, stride),
                     chw.conv_plain(x, wt, b, a, stride)) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout,k', [(24, 36, 3), (36, 48, 3), (24, 80, 2),
+                                        (14, 64, 2), (80, 80, 3), (20, 13, 5)])
+@pytest.mark.parametrize('h,w', [(23, 35), (17, 9)])
+def test_conv_stride2_odd_sizes_match_plain(cuda, dtype, cin, cout, k, h, w):
+    g = torch.Generator().manual_seed(cin * h + k)
+    x = randn(g, 2, cin, h, w).to(cuda, dtype)
+    wt = randn(g, cout, cin, k, k, scale=(k * k * cin) ** -0.5).to(cuda, dtype)
+    b = randn(g, cout, scale=0.1).to(cuda)
+    got = chw.conv(x, wt, b, None, 2)
+    want = chw.conv_plain(x, wt, b, None, 2)
+    assert got.shape == want.shape
+    assert norm_err(got, want) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c', [14, 24, 36, 48, 80])
+def test_cab_front_every_tile_matches_plain(cuda, c, dt):
+    """The kernel at each output tile that fits, not only the one
+    ``cab_front_tile`` picks."""
+    g = torch.Generator().manual_seed(c + 1)
+    x = randn(g, 2, c, 37, 70).to(cuda, dt)
+    w1 = randn(g, c, c, 3, 3, scale=(9 * c) ** -0.5).to(cuda, dt)
+    w2 = randn(g, c, c, 3, 3, scale=(9 * c) ** -0.5).to(cuda, dt)
+    alpha = torch.tensor([0.25], device=cuda)
+    ps, psums = chw.cab_front_plain(x, w1, alpha, w2)
+    tiles = [t for t in chw.CAB_TILES
+             if chw.cab_front_smem(c, x.element_size(), *t)
+             <= chw.SMEM_BYTES]
+    assert tiles
+    for tile in tiles:
+        s, sums = chw.cab_front(x, w1, alpha, w2, tile=tile)
+        assert norm_err(s, ps) < TOL[dt], tile
+        assert norm_err(sums, psums) < TOL[dt], tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout,k,stride', [(80, 96, 3, 1), (24, 36, 3, 2),
+                                               (72, 24, 3, 1)])
+def test_conv_every_tile_matches_plain(cuda, cin, cout, k, stride, dt):
+    g = torch.Generator().manual_seed(cin + cout)
+    x = randn(g, 2, cin, 37, 70).to(cuda, dt)
+    wt = randn(g, cout, cin, k, k, scale=(k * k * cin) ** -0.5).to(cuda, dt)
+    b = randn(g, cout, scale=0.1).to(cuda)
+    want = chw.conv_plain(x, wt, b, None, stride)
+    for tile in chw.CONV_TILES:
+        if chw.conv_smem(cin, cout, k, stride, *tile,
+                         x.element_size()) <= chw.SMEM_BYTES:
+            got = chw.conv(x, wt, b, None, stride, tile=tile)
+            assert norm_err(got, want) < TOL[dt], tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cab_front_and_conv_are_deterministic(cuda, dtype):
+    """Two launches on the same input give the same bits: every sum is
+    taken in one fixed order, with no atomics."""
+    g = torch.Generator().manual_seed(7)
+    c = 48
+    x = randn(g, 3, c, 37, 70).to(cuda, dtype)
+    w1 = randn(g, c, c, 3, 3, scale=(9 * c) ** -0.5).to(cuda, dtype)
+    w2 = randn(g, c, c, 3, 3, scale=(9 * c) ** -0.5).to(cuda, dtype)
+    alpha = torch.tensor([0.25], device=cuda)
+    s1, sums1 = chw.cab_front(x, w1, alpha, w2)
+    s2, sums2 = chw.cab_front(x, w1, alpha, w2)
+    assert torch.equal(s1, s2) and torch.equal(sums1, sums2)
+    b = randn(g, c, scale=0.1).to(cuda)
+    assert torch.equal(chw.conv(x, w1, b, alpha, 1),
+                       chw.conv(x, w1, b, alpha, 1))
 
 
 @pytest.mark.cuda
