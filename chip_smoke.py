@@ -10,8 +10,9 @@ Phases, each of which must pass:
 2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
    nine model kernels and the four probe kernels) into one library (one
    nvcc per source, in parallel), then count the tensor-core (``HMMA``)
-   instructions in the SASS of the ``cab_front`` and ``conv`` kernels, both
-   types (``cuobjdump -sass``): every instantiation must have some.
+   instructions in the SASS of the ``cab_front``, ``conv``, ``naf_gate``
+   and ``naf_rep`` kernels, both types (``cuobjdump -sass``): every
+   instantiation must have some.
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
@@ -195,7 +196,8 @@ def device_phase():
 
 # The kernel templates that run on the tensor cores (mma.sync), by name in
 # the SASS: every instantiation must hold HMMA instructions.
-MMA_KERNELS = ('cab_front_mma_kernel', 'conv_mma_kernel')
+MMA_KERNELS = ('cab_front_mma_kernel', 'conv_mma_kernel',
+               'naf_gate_mma_kernel', 'naf_rep_mma_kernel')
 
 
 def _hmma_counts(lib):
@@ -456,7 +458,7 @@ def _cases():
                 hw = arr(rng, (T_CHECK, add_c, h, w), dt) if cab2 else None
                 cin = n + (add_c if cab2 else 0)
                 px = T_CHECK * h * w
-                used = [prep[k] for k in ('wg', 'c1', 'c2', 'dw0', 'dwc')]
+                used = [prep[k] for k in ('wg_p', 'c1', 'c2', 'dw0', 'dwc')]
                 return Case(lambda: naf_chw.naf_gate(y, hw, prep),
                             lambda: naf_chw.naf_gate_plain(y, hw, prep),
                             [y, hw, *used],
@@ -471,7 +473,7 @@ def _cases():
                 cag = unit(rng, (T_CHECK, n), dt) if opts else None
                 return Case(lambda: naf_chw.naf_rep(g, cag, prep),
                             lambda: naf_chw.naf_rep_plain(g, cag, prep),
-                            [g, cag, prep['rep'], prep['w4']],
+                            [g, cag, prep['rep_p'], prep['w4_p']],
                             2 * T_CHECK * h * w * (25 * 8 * n + 2 * n * n))
 
             def back(rng, dt, h=h, w=w, opts=opts):
@@ -509,7 +511,7 @@ def _small_cases(arr, wgt, unit, naf_prep):
             cag = unit(rng, (T_CHECK, n), dt) if opts else None
             return Case(lambda: naf_chw.naf_rep(g, cag, prep),
                         lambda: naf_chw.naf_rep_plain(g, cag, prep),
-                        [g, cag, prep['rep'], prep['w4']],
+                        [g, cag, prep['rep'], prep['w4_p']],
                         2 * T_CHECK * h * w * (25 * n + 2 * n * n))
         cases.append(('naf_rep_depthwise',
                       f'n={n} {h}x{w}{" cag" if opts else ""}', rep))
@@ -567,7 +569,7 @@ def _small_cases(arr, wgt, unit, naf_prep):
         prep = naf_prep(rng, n, True, dt, depthwise=True)
         y = arr(rng, (T_CHECK, n, h, w), dt)
         hw = arr(rng, (T_CHECK, n // 2, h, w), dt)
-        used = [prep[k] for k in ('wg', 'c1', 'c2', 'dw0', 'dwc')]
+        used = [prep[k] for k in ('wg_p', 'c1', 'c2', 'dw0', 'dwc')]
         px, cin = T_CHECK * h * w, n + n // 2
         return Case(lambda: naf_chw.naf_gate(y, hw, prep),
                     lambda: naf_chw.naf_gate_plain(y, hw, prep),

@@ -61,13 +61,6 @@ __host__ __device__ inline size_t cab_front_smem(int C, int Np, int KP,
          core::weight_smem<T>(9, Np, KP);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-
 // Two blocks an SM in bfloat16 (128 registers a thread); float32's tiles
 // take one.
 template <typename T, int NTW, int WN>
@@ -107,8 +100,8 @@ __global__ void __launch_bounds__(core::kThreads, sizeof(T) == 2 ? 2 : 1)
         if (co >= kc) return;
         const int gy = y0 - 1 + p / MW, gx = x0 - 1 + p % MW;
         const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        store2(mid + (size_t)p * sp + co, in ? prelu(v0, a) : 0.f,
-               in ? prelu(v1, a) : 0.f);
+        core::store2(mid + (size_t)p * sp + co, in ? prelu(v0, a) : 0.f,
+                     in ? prelu(v1, a) : 0.f);
       });
   // conv2 into the s tile (zero outside the image).
   core::conv_tile<T, NTW, WN, CabMfw<T, NTW, WN>::conv2>(
@@ -121,35 +114,9 @@ __global__ void __launch_bounds__(core::kThreads, sizeof(T) == 2 ? 2 : 1)
         if (co + 1 < C) sbuf[(co + 1) * sbp + p] = from_f<T>(in ? v1 : 0.f);
       });
   __syncthreads();
-
-  T* st = s + (size_t)t * C * plane;
-  if (W % CH == 0) {  // rows and tile columns on the 16-byte grid
-    const int qv = TW / CH, items = C * TH * qv;
-    for (int i = threadIdx.x; i < items; i += blockDim.x) {
-      const int c = i / (TH * qv), rem = i - c * TH * qv;
-      const int r = rem / qv, q = (rem - r * qv) * CH;
-      if (y0 + r < H && x0 + q < W)
-        *reinterpret_cast<uint4*>(st + c * plane + (size_t)(y0 + r) * W +
-                                  x0 + q) =
-            *reinterpret_cast<const uint4*>(sbuf + c * sbp + r * TW + q);
-    }
-  } else {
-    for (int i = threadIdx.x; i < C * TH * TW; i += blockDim.x) {
-      const int c = i / (TH * TW), p = i - c * TH * TW;
-      const int r = p / TW, q = p - r * TW;
-      if (y0 + r < H && x0 + q < W)
-        st[c * plane + (size_t)(y0 + r) * W + x0 + q] = sbuf[c * sbp + p];
-    }
-  }
-
-  // Per-channel tile sums in a fixed order: one warp per channel.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int c = warp; c < C; c += core::kWarps) {
-    float part = 0.f;
-    for (int p = lane; p < TH * TW; p += 32) part += to_f(sbuf[c * sbp + p]);
-    part = warp_sum(part);
-    if (lane == 0) sums[((size_t)t * n_blocks + tile) * C + c] = part;
-  }
+  core::store_tile_and_sums(sbuf, sbp, s + (size_t)t * C * plane, C, H, W, y0,
+                            x0, TH, TW,
+                            sums + ((size_t)t * n_blocks + tile) * C);
 }
 
 template <typename T>

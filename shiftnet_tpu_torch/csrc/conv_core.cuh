@@ -5,8 +5,9 @@
 // (the rounding error of the high part), and a_lo b_hi + a_hi b_lo + a_hi
 // b_hi summed on m16n8k8 (and m16n8k4) TF32 products, which keeps float32's
 // accuracy where one TF32 product keeps about three decimal digits.  It is
-// a device building block, not a kernel: cab_front.cu and conv.cu stage
-// their tiles and call conv_tile.
+// a device building block, not a kernel: cab_front.cu, conv.cu,
+// naf_gate.cu and naf_rep.cu stage their tiles and call conv_tile (and
+// naf_rep.cu's grouped 5x5, group_tile).
 //
 // The product.  Output pixels are the M rows, output channels the N
 // columns, and (tap, input channel) the K depth: acc[p][co] = sum over taps
@@ -48,6 +49,33 @@
 namespace shiftnet {
 namespace core {
 
+// Phase timing of a kernel's blocks, compiled only with -DSHIFTNET_PHASES
+// (tools/phase_naf.py builds such a library): SHIFTNET_PHASE(k) waits for
+// the block, then thread 0 adds the clock64() cycles since the previous
+// mark to the translation unit's phase_cycles[k].  Empty otherwise.
+#ifdef SHIFTNET_PHASES
+static __device__ unsigned long long phase_cycles[16];
+#define SHIFTNET_PHASE_START unsigned long long phase_t0_ = clock64()
+#define SHIFTNET_PHASE(k)                                           \
+  do {                                                              \
+    __syncthreads();                                                \
+    if (threadIdx.x == 0) {                                         \
+      const unsigned long long now_ = clock64();                    \
+      atomicAdd(&::shiftnet::core::phase_cycles[k], now_ - phase_t0_); \
+      phase_t0_ = now_;                                             \
+    }                                                               \
+  } while (0)
+// Copy out and clear this translation unit's phase_cycles (host).
+inline int read_phase_cycles(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+  const unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+}
+#else
+#define SHIFTNET_PHASE_START
+#define SHIFTNET_PHASE(k)
+#endif
+
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kResidentBytes = 40960;   // a conv's panels kept whole
@@ -73,10 +101,13 @@ __host__ __device__ inline int mma_pitch(int c) {
   return (p / chunk<T>()) % 2 ? p : p + chunk<T>();
 }
 
-// Shared-memory bytes of a conv's weights: whole, or two tap panels.
+// Shared-memory bytes of a conv's weights: whole, or two tap panels.  A
+// 1x1 conv (one tap) is always whole: streaming would double-buffer the
+// same panel.
 template <typename T>
 __host__ __device__ inline bool resident(int taps, int Np, int KP) {
-  return (size_t)taps * Np * KP * sizeof(T) <= (size_t)kResidentBytes;
+  return taps == 1 ||
+         (size_t)taps * Np * KP * sizeof(T) <= (size_t)kResidentBytes;
 }
 template <typename T>
 __host__ __device__ inline size_t weight_smem(int taps, int Np, int KP) {
@@ -299,19 +330,189 @@ __device__ __forceinline__ void stage_tile(T* dst, int sp, const T* xt,
   }
 }
 
+// stage_tile with kBatch items' loads issued before their stores, so that
+// their latencies overlap (the naf kernels' tiles), and an optional
+// per-channel scale (in T): each staged value is then x * scale[c], a
+// product in T.
+template <typename T, int kBatch>
+__device__ __forceinline__ void stage_tile_batched(
+    T* dst, int sp, const T* xt, int C, int H, int W, int y0, int x0, int SH,
+    int SW, const T* scale = nullptr) {
+  constexpr int CH = chunk<T>();
+  const int npx = SH * SW, items = npx * (pad_chunk<T>(C) / CH);
+  const size_t plane = (size_t)H * W;
+  for (int i0 = threadIdx.x; i0 < items; i0 += blockDim.x * kBatch) {
+    // Each chunk as four 32-bit words of raw bits: two bfloat16 or one
+    // float32 each (zero bits are zero in both).
+    uint4 pack[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * blockDim.x;
+      const int cc = i / npx, p = i - cc * npx;
+      const int r = p / SW, q = p - r * SW;
+      const int gy = y0 + r, gx = x0 + q;
+      const bool in =
+          i < items && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const T* s =
+          xt + (in ? (size_t)cc * CH * plane + (size_t)gy * W + gx : 0);
+      uint32_t v[4];
+      if constexpr (sizeof(T) == 2) {
+        const uint16_t* s16 = reinterpret_cast<const uint16_t*>(s);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = cc * CH + 2 * e;
+          const uint32_t lo =
+              (in && c < C) ? s16[(size_t)(2 * e) * plane] : 0u;
+          const uint32_t hi =
+              (in && c + 1 < C) ? s16[(size_t)(2 * e + 1) * plane] : 0u;
+          v[e] = lo | (hi << 16);
+        }
+      } else {
+        const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = (in && cc * CH + e < C) ? s32[(size_t)e * plane] : 0u;
+      }
+      pack[b] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * blockDim.x;
+      if (i >= items) break;
+      const int cc = i / npx, p = i - cc * npx;
+      if (scale) {
+        T* e = reinterpret_cast<T*>(&pack[b]);
+#pragma unroll
+        for (int k = 0; k < CH; ++k)
+          if (cc * CH + k < C)
+            e[k] = from_f<T>(to_f(e[k]) * to_f(scale[cc * CH + k]));
+      }
+      *reinterpret_cast<uint4*>(dst + (size_t)p * sp + cc * CH) = pack[b];
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void load2(const bf16* p, float& v0, float& v1) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v0 = v.x;
+  v1 = v.y;
+}
+__device__ __forceinline__ void load2(const float* p, float& v0, float& v1) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  v0 = v.x;
+  v1 = v.y;
+}
+
+// Write a block's channel-major output tile sbuf[c * sbp + r * TW + q]
+// (zero outside the image) to frame ot, 16-byte stores where the rows and
+// tile columns lie on the 16-byte grid.
+template <typename T>
+__device__ __forceinline__ void store_tile(const T* sbuf, int sbp, T* ot,
+                                           int C, int H, int W, int y0,
+                                           int x0, int TH, int TW) {
+  constexpr int CH = chunk<T>();
+  const size_t plane = (size_t)H * W;
+  if (W % CH == 0 && TW % CH == 0) {
+    const int qv = TW / CH, items = C * TH * qv;
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int c = i / (TH * qv), rem = i - c * TH * qv;
+      const int r = rem / qv, q = (rem - r * qv) * CH;
+      if (y0 + r < H && x0 + q < W)
+        *reinterpret_cast<uint4*>(ot + c * plane + (size_t)(y0 + r) * W +
+                                  x0 + q) =
+            *reinterpret_cast<const uint4*>(sbuf + c * sbp + r * TW + q);
+    }
+  } else {
+    for (int i = threadIdx.x; i < C * TH * TW; i += blockDim.x) {
+      const int c = i / (TH * TW), p = i - c * TH * TW;
+      const int r = p / TW, q = p - r * TW;
+      if (y0 + r < H && x0 + q < W)
+        ot[c * plane + (size_t)(y0 + r) * W + x0 + q] = sbuf[c * sbp + p];
+    }
+  }
+}
+
+// store_tile, then the tile's per-channel sums, in a fixed order (one warp
+// per channel, no atomics), to sums_row[c].
+template <typename T>
+__device__ __forceinline__ void store_tile_and_sums(const T* sbuf, int sbp,
+                                                    T* ot, int C, int H,
+                                                    int W, int y0, int x0,
+                                                    int TH, int TW,
+                                                    float* sums_row) {
+  store_tile(sbuf, sbp, ot, C, H, W, y0, x0, TH, TW);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int c = warp; c < C; c += blockDim.x >> 5) {
+    float part = 0.f;
+    for (int p = lane; p < TH * TW; p += 32) part += to_f(sbuf[c * sbp + p]);
+    part = warp_sum(part);
+    if (lane == 0) sums_row[c] = part;
+  }
+}
+
+// Per-frame channel sums of a persistent block's tiles (the naf kernels):
+// thread c < C owns channel c, adds each tile's plane in order, 16 bytes at
+// a time, and writes the frame's sum to row (t, blockIdx.x) of a [T][rows]
+// [C] buffer (zeroed by the caller) when its jobs move on to the next
+// frame; jobs come in increasing order, so each row is written once.  A
+// fixed order and no atomics: the sums are deterministic.
+template <typename T>
+struct FrameSums {
+  float* sums;
+  int rows, C, t = -1;
+  float acc = 0.f;
+  __device__ FrameSums(float* s, int r, int c) : sums(s), rows(r), C(c) {}
+  __device__ void flush() {
+    if (t >= 0 && (int)threadIdx.x < C)
+      sums[((size_t)t * rows + blockIdx.x) * C + threadIdx.x] = acc;
+  }
+  // Add the tile sbuf[c * sbp + p], p < n_px (a multiple of chunk<T>()).
+  __device__ void add(int frame, const T* sbuf, int sbp, int n_px) {
+    if (frame != t) {
+      flush();
+      t = frame;
+      acc = 0.f;
+    }
+    const int c = threadIdx.x;
+    if (c >= C) return;
+    for (int p = 0; p < n_px; p += chunk<T>()) {
+      const uint4 pack = *reinterpret_cast<const uint4*>(sbuf + c * sbp + p);
+      const T* v = reinterpret_cast<const T*>(&pack);
+#pragma unroll
+      for (int k = 0; k < chunk<T>(); ++k) acc += to_f(v[k]);
+    }
+  }
+};
+
 // One conv over the pixel-major tile src (row length sp; Kc =
 // pad_chunk(Cin) channels read).  Output pixel p < M reads tile rows
 // base(p) + off(tap), off(ky * ksz + kx) = ky * sw + kx.  wg: the packed
 // weights [taps][Np][KP] in device memory; wbuf: weight_smem(taps, Np, KP)
-// bytes of shared memory.  Calls epi(p, co, v0, v1) with the float32 sums
-// of channels co and co + 1 (co even, co + 1 < Np) for every p < M.  Starts
-// with __syncthreads(), so the caller's staging is complete and wbuf is
-// free; the caller synchronises before it reads what epi wrote.
-template <typename T, int NTW, int WN, int MFW, typename Base, typename Epi>
+// bytes of shared memory; with kLoaded, wbuf already holds the whole
+// panels (a persistent block's, loaded once; wg unused).  Calls epi(p, co,
+// v0, v1)
+// with the float32 sums of channels co and co + 1 (co even, co + 1 < Np)
+// for every p < M.  With
+// kPair, the packed rows come in pairs of n8 tiles (tile 2b holds a gate's
+// first factors, tile 2b + 1 their partners: ops/naf_chw.py, gate_rows) and
+// epi(p, o, a0, a1, b0, b1) takes both tiles' sums at once, o = 8 b + the
+// lane's channel pair.  Starts with __syncthreads(), so the caller's
+// staging is complete and wbuf is free; the caller synchronises before it
+// reads what epi wrote.
+template <typename T, int NTW, int WN, int MFW, bool kPair = false,
+          bool kLoaded = false, typename Base, typename Epi>
 __device__ __forceinline__ void conv_tile(const T* src, int sp, int Kc,
                                           const T* __restrict__ wg, T* wbuf,
                                           int ksz, int sw, int Np, int KP,
                                           int M, Base base, Epi epi) {
+  static_assert(!kPair || NTW % 2 == 0, "gate pairs of n8 tiles");
   constexpr int WM = kWarps / WN;
   constexpr int CH = chunk<T>();  // K of a half step; a full step is 2 CH
   using Full = Step<T, true>;
@@ -334,11 +535,16 @@ __device__ __forceinline__ void conv_tile(const T* src, int sp, int Kc,
   const int b_k = ((lane >> 3) & 1) * CH;
   const int bh_row = (lane & 7) + (((lane >> 3) & 1) << 3);
 
-  __syncthreads();
-  load_async(wbuf, wg, whole ? taps * panel : panel);
-  if (whole) {
+  if constexpr (kLoaded) {  // the caller's panels, loaded or in flight
     wait_async();
     __syncthreads();
+  } else {
+    __syncthreads();
+    load_async(wbuf, wg, whole ? taps * panel : panel);
+    if (whole) {
+      wait_async();
+      __syncthreads();
+    }
   }
   for (int pass = 0; pass < passes; ++pass) {
     int a_off[MFW];
@@ -434,38 +640,171 @@ __device__ __forceinline__ void conv_tile(const T* src, int sp, int Kc,
     for (int i = 0; i < MFW; ++i) {
       if (!live[i]) continue;
       const int p0 = (pass * per_pass + wm * MFW + i) * 16 + g;
+      if constexpr (kPair) {
 #pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int co = (nt0 + j) * 8 + t2;
-        if (p0 < M) epi(p0, co, acc[i][j][0], acc[i][j][1]);
-        if (p0 + 8 < M) epi(p0 + 8, co, acc[i][j][2], acc[i][j][3]);
+        for (int j = 0; j < NTW; j += 2) {
+          const int o = (nt0 + j) / 2 * 8 + t2;
+          if (p0 < M)
+            epi(p0, o, acc[i][j][0], acc[i][j][1], acc[i][j + 1][0],
+                acc[i][j + 1][1]);
+          if (p0 + 8 < M)
+            epi(p0 + 8, o, acc[i][j][2], acc[i][j][3], acc[i][j + 1][2],
+                acc[i][j + 1][3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int co = (nt0 + j) * 8 + t2;
+          if (p0 < M) epi(p0, co, acc[i][j][0], acc[i][j][1]);
+          if (p0 + 8 < M) epi(p0 + 8, co, acc[i][j][2], acc[i][j][3]);
+        }
       }
     }
   }
 }
 
+// A grouped conv of groups of 8 input and 8 output channels (RepConv's G =
+// 8): group grp reads channels 8 grp .. 8 grp + 7 of the pixel-major tile
+// src, which is one K step of the tensor cores (one 16-byte chunk, k8, in
+// bfloat16; two chunks, a TF32 k8 in float32), and writes one n8 tile.  wg:
+// the packed panels [groups][taps][8][mma_pitch(8)] (ops/naf_chw.py,
+// pack_groups), all kept in wbuf (with kLoaded: already there).  A warp
+// takes MFW m16 fragments of one group at a time, the B fragment of a tap
+// shared by them.  Calls epi(p, co, v0, v1) as conv_tile does; starts with
+// __syncthreads().
+template <typename T, int MFW, bool kLoaded = false, typename Base,
+          typename Epi>
+__device__ __forceinline__ void group_tile(const T* src, int sp, int groups,
+                                           const T* __restrict__ wg, T* wbuf,
+                                           int ksz, int sw, int M, Base base,
+                                           Epi epi) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int CH = chunk<T>();
+  using S = Step<T, kF32>;  // K = 8: a full step in TF32, half in bf16
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int taps = ksz * ksz;
+  const int kp = mma_pitch<T>(8), panel = 8 * kp;
+  const int frags = (M + 15) / 16;
+  const int fsets = (frags + MFW - 1) / MFW;
+
+  if constexpr (!kLoaded) {
+    __syncthreads();
+    load_async(wbuf, wg, groups * taps * panel);
+  }
+  wait_async();
+  __syncthreads();
+  for (int item = warp; item < groups * fsets; item += kWarps) {
+    const int grp = item / fsets, fs = item - grp * fsets;
+    int a_off[MFW];
+    bool live[MFW];
+#pragma unroll
+    for (int i = 0; i < MFW; ++i) {
+      const int f = fs * MFW + i;
+      live[i] = f < frags;
+      const int p = min(f * 16 + (lane & 15), M - 1);
+      a_off[i] = base(p) * sp + 8 * grp + (kF32 ? (lane >> 4) * CH : 0);
+    }
+    float acc[MFW][4];
+#pragma unroll
+    for (int i = 0; i < MFW; ++i)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][r] = 0.f;
+    const T* wgp = wbuf + grp * taps * panel;
+    for (int tap = 0; tap < taps; ++tap) {
+      const int ky = tap / ksz;
+      const T* xs = src + (ky * sw + tap - ky * ksz) * sp;
+      const T* wp = wgp + tap * panel + (lane & 7) * kp;
+      typename S::B b;
+      uint32_t rb[2];
+      if constexpr (kF32)
+        ldsm_x2(rb, wp + ((lane >> 3) & 1) * CH);
+      else
+        ldsm_x1(rb[0], wp);
+      S::load_b(b, rb);
+#pragma unroll
+      for (int i = 0; i < MFW; ++i) {
+        if (!live[i]) continue;
+        typename S::A a;
+        uint32_t ra[4];
+        if constexpr (kF32)
+          ldsm_x4(ra, xs + a_off[i]);
+        else
+          ldsm_x2(ra, xs + a_off[i]);
+        S::load_a(a, ra);
+        S::mma(acc[i], a, b);
+      }
+    }
+    const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+    for (int i = 0; i < MFW; ++i) {
+      if (!live[i]) continue;
+      const int p0 = (fs * MFW + i) * 16 + g;
+      if (p0 < M) epi(p0, 8 * grp + t2, acc[i][0], acc[i][1]);
+      if (p0 + 8 < M) epi(p0 + 8, 8 * grp + t2, acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// Threads of a depthwise pass: thread i takes channel pair i % npair at
+// every (blockDim.x / npair)-th item from item i / npair, so its weights
+// are loaded once a tile and a warp's loads are contiguous.
+struct PairSlots {
+  int pair, slot, slots;
+  __device__ PairSlots(int npair)
+      : pair(threadIdx.x % npair),
+        slot(threadIdx.x / npair),
+        slots(blockDim.x / npair) {}
+  __device__ bool idle() const { return slot >= slots; }
+};
+
+// Persistent blocks: as many as the card holds at once, at most max_rows
+// (the rows of the caller's sums buffer), and at most one a job.
+template <typename K>
+inline int persistent_grid(K kern, size_t smem, int jobs, int max_rows) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                kThreads, smem);
+  int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > max_rows) blocks = max_rows;
+  return jobs < blocks ? jobs : blocks;
+}
+
 // The warp layout of Np output-channel rows: NT = Np / 8 n8 tiles on one
 // warp column (WN = 1) for NT <= 7, else Np = 16 * ceil(NT / 2) on two
-// (ops/chw.py, mma_layout mirrors this).  Calls f(NTW, WN) with both as
+// (ops/chw.py, mma_layout mirrors this).  kExpand: the layouts of the
+// naf_gate / naf_rep expands n -> 2n (n = 32, 48, 64, 80), two warp
+// columns of an even number of tiles each, so that a gate pair of tiles
+// sits in one warp.  Calls f(NTW, WN) with both as
 // std::integral_constant; cudaErrorInvalidValue for any other Np.
-template <typename F>
+template <bool kExpand = false, typename F>
 int dispatch_np(int Np, F&& f) {
   using std::integral_constant;
 #define SHIFTNET_NP(NP, NTW, WN) \
   case NP:                       \
     return f(integral_constant<int, NTW>{}, integral_constant<int, WN>{});
-  switch (Np) {
-    SHIFTNET_NP(8, 1, 1)
-    SHIFTNET_NP(16, 2, 1)
-    SHIFTNET_NP(24, 3, 1)
-    SHIFTNET_NP(32, 4, 1)
-    SHIFTNET_NP(40, 5, 1)
-    SHIFTNET_NP(48, 6, 1)
-    SHIFTNET_NP(56, 7, 1)
-    SHIFTNET_NP(64, 4, 2)
-    SHIFTNET_NP(80, 5, 2)
-    SHIFTNET_NP(96, 6, 2)
-    SHIFTNET_NP(112, 7, 2)
+  if constexpr (kExpand) {
+    switch (Np) {
+      SHIFTNET_NP(64, 4, 2)
+      SHIFTNET_NP(96, 6, 2)
+      SHIFTNET_NP(128, 8, 2)
+      SHIFTNET_NP(160, 10, 2)
+    }
+  } else {
+    switch (Np) {
+      SHIFTNET_NP(8, 1, 1)
+      SHIFTNET_NP(16, 2, 1)
+      SHIFTNET_NP(24, 3, 1)
+      SHIFTNET_NP(32, 4, 1)
+      SHIFTNET_NP(40, 5, 1)
+      SHIFTNET_NP(48, 6, 1)
+      SHIFTNET_NP(56, 7, 1)
+      SHIFTNET_NP(64, 4, 2)
+      SHIFTNET_NP(80, 5, 2)
+      SHIFTNET_NP(96, 6, 2)
+      SHIFTNET_NP(112, 7, 2)
+    }
   }
 #undef SHIFTNET_NP
   return (int)cudaErrorInvalidValue;

@@ -38,9 +38,9 @@ SIGNATURES = {
     'shiftnet_up_skip': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'shiftnet_shift_round': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'shiftnet_naf_gate': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, ctypes.c_float, _P],
+                          _I, _I, _I, _I, _I, ctypes.c_float, _P],
     'shiftnet_naf_rep': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _P],
+                         _I, _I, _P],
     'shiftnet_naf_back': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           ctypes.c_longlong, _P],
     'shiftnet_conv_cat': [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,

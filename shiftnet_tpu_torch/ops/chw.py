@@ -105,10 +105,22 @@ def mma_pitch(c: int, itemsize: int) -> int:
     return p if (p * itemsize // 16) % 2 else p + 16 // itemsize
 
 
-def mma_layout(c_in: int, c_out: int, itemsize: int) -> tuple[int, int]:
+# Output rows of the naf_gate / naf_rep expands n -> 2n (n = 32, 48, 64,
+# 80): two warp columns of an even number of n8 tiles (dispatch_np's
+# kExpand table).
+EXPAND_NP = (64, 96, 128, 160)
+
+
+def mma_layout(c_in: int, c_out: int, itemsize: int, *,
+               expand: bool = False) -> tuple[int, int]:
     """(Np, KP) of the packed weights of a c_in -> c_out conv: output
     channel rows padded to whole n8 tiles on one warp column (up to 7
-    tiles) or on two, and the panel row length (``dispatch_np``)."""
+    tiles) or on two, and the panel row length (``dispatch_np``).
+    ``expand``: the layout of a naf expand, c_out = 2n in ``EXPAND_NP``."""
+    if expand:
+        if c_out not in EXPAND_NP:
+            raise ValueError(f'expand: 2n={c_out} not in {EXPAND_NP}')
+        return c_out, mma_pitch(c_in, itemsize)
     nt = -(-c_out // 8)
     np_ = 8 * nt if nt <= 7 else 16 * -(-nt // 2)
     if np_ > 112:
@@ -127,9 +139,11 @@ def pack_taps(w: torch.Tensor, np_: int, kp: int) -> torch.Tensor:
 
 
 def mma_weight_smem(taps: int, np_: int, kp: int, itemsize: int) -> int:
-    """Shared memory of a conv's panels: whole, or two streamed taps."""
+    """Shared memory of a conv's panels: whole (always for one tap), or
+    two streamed taps."""
     whole = taps * np_ * kp * itemsize
-    return whole if whole <= RESIDENT_BYTES else 2 * np_ * kp * itemsize
+    return (whole if taps == 1 or whole <= RESIDENT_BYTES
+            else 2 * np_ * kp * itemsize)
 
 
 def _pick_tile(tiles, smem, itemsize: int) -> tuple[int, int]:

@@ -16,6 +16,11 @@ attention MLPs (``chw.ca_mlp``) as plain torch between them:
   SimpleGate2;
 - ``naf_back`` (H, ``csrc/naf_back.cu``): y + beta * (w7 . (s * ca) + b7).
 
+naf_gate's expand and naf_rep's grouped 5x5 and expand run on the
+tensor-core conv core (``csrc/conv_core.cuh``); their weight panels are
+packed once by ``prep_naf`` (``wg_p``, ``w4_p`` in the gate interleave of
+``gate_rows``, ``rep_p`` by ``pack_groups``).
+
 Dispatch is that of ``ops/chw``: a CUDA tensor launches the kernel or
 raises, a CPU tensor runs the plain version (``*_plain``), and each launch
 adds one to ``chw.LAUNCHES``.  The plain versions round where the XLA twin
@@ -32,11 +37,13 @@ import torch.nn.functional as F
 
 from shiftnet_tpu_torch.ops import _build
 from shiftnet_tpu_torch.ops.chw import (LAUNCHES, SMEM_BYTES, _check, _on_cuda,
-                                        _stream, ca_mlp, prefix)
+                                        _pick_tile, _stream, ca_mlp,
+                                        mma_layout, mma_pitch, pack_taps,
+                                        prefix)
 from shiftnet_tpu_torch.ops.shift import gsts
 
 LN_EPS = 1e-6
-GATE_SLACK = 8    # csrc/naf_gate.cu, kGateSlack
+SBUF_PAD = 8      # csrc/naf_gate.cu, naf_rep.cu: output tile plane padding
 BACK_PX = 128     # csrc/naf_back.cu, kBackPx: pixels per block
 TILES = ((16, 16), (8, 16), (8, 8))  # output tiles, largest first
 REP_GROUPS = (8, 1)  # RepConv input channels per group: big, small variants
@@ -70,6 +77,17 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
     - ``dw0`` [2n][9] (RepConv2), ``dwc`` [add_c][9] (CAB2's conv1, None
       for CAB1), ``w4`` [n][2n], ``w7`` [n][n] (input-major), ``beta`` [n]
       and ``b7`` [n] (None without ``last_bias``).
+
+    The tensor-core panels, in the compute type and holding exactly the
+    values above, are packed here once, not per launch:
+
+    - ``wg_p`` (1, 2n, mma_pitch(cin)): naf_gate's expand, output channels
+      in order;
+    - ``w4_p`` (1, 2n, mma_pitch(n)): naf_rep's expand, rows in the gate
+      interleave of ``gate_rows``;
+    - ``rep_p`` (n/8, 25, 8, mma_pitch(8)) for the grouped RepConv
+      (``pack_groups``), None for the depthwise one (the kernel reads
+      ``rep`` on the CUDA cores).
     """
     k = prefix(name)
 
@@ -89,19 +107,48 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
     rep[:, :, 1:4, 1:4] += q(f'body.{3 + off}.conv_2.weight')
     o = torch.arange(n, device=rep.device)
     rep[o, o % cin_g, 2, 2] += 1.0
+    rep = rep.to(dtype).float()
+    wg = (w0 * gamma).t().to(dtype).float().contiguous()
+    w4 = q(f'body.{4 + off}.weight').flatten(1).t().contiguous()
+    size = torch.empty((), dtype=dtype).element_size()
     return {
-        'wg': (w0 * gamma).t().to(dtype).float().contiguous(),
+        'wg': wg,
         'c1': w0 @ gamma,
         'c2': w0 @ beta_ln,
         'dw0': q('body.1.conv_2.weight').reshape(2 * n, 9),
         'dwc': (q('conv1.weight').flatten(1) if k + 'conv1.weight' in p
                 else None),
-        'rep': rep.to(dtype).float(),
-        'w4': q(f'body.{4 + off}.weight').flatten(1).t().contiguous(),
+        'rep': rep,
+        'w4': w4,
         'w7': q(f'body.{7 + off}.weight').flatten(1).t().contiguous(),
         'beta': q('beta').flatten(),
         'b7': q(f'body.{7 + off}.bias') if last_bias else None,
+        'wg_p': pack_taps(wg.t()[:, :, None, None].to(dtype), 2 * n,
+                          mma_pitch(wg.shape[0], size)),
+        'w4_p': pack_taps(w4.t()[gate_rows(n), :, None, None].to(dtype),
+                          2 * n, mma_pitch(n, size)),
+        'rep_p': pack_groups(rep.to(dtype)) if cin_g == 8 else None,
     }
+
+
+def gate_rows(n: int) -> torch.Tensor:
+    """The expand output channel of each row of ``w4_p``: in every 16 rows,
+    8 channels o .. o + 7 and then their SimpleGate2 partners o + n ..
+    o + n + 7, so a gate's two factors are the sums of one warp's two
+    neighbouring n8 tiles (csrc/conv_core.cuh, conv_tile's kPair)."""
+    r = torch.arange(2 * n)
+    return 8 * (r // 16) + r % 8 + n * ((r % 16) >= 8).long()
+
+
+def pack_groups(rep: torch.Tensor) -> torch.Tensor:
+    """A grouped RepConv (n, 8, 5, 5) -> (n/8, 25, 8, mma_pitch(8)): per
+    group and tap (ky * 5 + kx), the B operand of csrc/conv_core.cuh's
+    group_tile, output channels on the rows, the group's 8 input channels
+    along them, zero-padded; in rep's type."""
+    n = rep.shape[0]
+    kp = mma_pitch(8, rep.element_size())
+    panels = rep.reshape(n // 8, 8, 8, 25).permute(0, 3, 1, 2)
+    return F.pad(panels, (0, kp - 8)).contiguous()
 
 
 # -- E: shift_round ------------------------------------------------------------
@@ -137,25 +184,23 @@ def shift_round(x: torch.Tensor, number: int, *, reverse: bool,
 # -- F: naf_gate ---------------------------------------------------------------
 
 def naf_gate_smem(n: int, add_c: int, itemsize: int, th: int, tw: int) -> int:
-    """Shared memory of one ``naf_gate`` block (csrc/naf_gate.cu): float32
-    LN statistics of the expand region (the tile plus a 1-pixel halo), the
-    staged [y; hw2], and the larger of hw with a 2-pixel halo and e."""
-    a1 = (th + 2) * (tw + 2)
-    a2 = (th + 4) * (tw + 4)
-    return 8 * a1 + ((n + add_c) * a1 + GATE_SLACK
-                     + max(2 * n * a1, add_c * a2)) * itemsize
-
-
-def _tile(name: str, smem) -> tuple[int, int]:
-    for th, tw in TILES:
-        if smem(th, tw) <= SMEM_BYTES:
-            return th, tw
-    raise ValueError(f'{name}: does not fit in shared memory')
+    """Shared memory of one ``naf_gate`` block (csrc/naf_gate.cu,
+    naf_gate_smem): the expand's panel; the pixel-major [y; hw2] of the
+    expand region (the tile plus a 1-pixel halo), later the g tile; the
+    larger of hw with a 2-pixel halo and e (rows of 2n + 8); float32 LN
+    statistics and the folded LN's terms c1, c2."""
+    m1 = (th + 2) * (tw + 2)
+    sx = mma_pitch(n + add_c, itemsize)
+    xin = max(m1 * sx, n * (th * tw + SBUF_PAD))
+    hw = (th + 4) * (tw + 4) * mma_pitch(add_c, itemsize) if add_c else 0
+    return ((2 * n * sx + xin + max(m1 * (2 * n + 8), hw)) * itemsize
+            + 4 * (2 * m1 + 4 * n))
 
 
 def naf_gate_tile(n: int, add_c: int, itemsize: int) -> tuple[int, int]:
-    return _tile('naf_gate',
-                 lambda th, tw: naf_gate_smem(n, add_c, itemsize, th, tw))
+    """Output tile (TH, TW) of ``naf_gate`` (``chw._pick_tile``)."""
+    return _pick_tile(TILES, lambda th, tw: naf_gate_smem(
+        n, add_c, itemsize, th, tw), itemsize)
 
 
 def naf_gate_plain(y, hw, prep):
@@ -181,50 +226,78 @@ def naf_gate_plain(y, hw, prep):
     return g, g.float().sum(dim=(2, 3))
 
 
-def naf_gate(y: torch.Tensor, hw: torch.Tensor | None,
-             prep: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def _sum_rows(device: torch.device) -> int:
+    """Rows of the naf kernels' sums buffer: the most blocks their grids take
+    (persistent, two blocks an SM at most; csrc/conv_core.cuh,
+    persistent_grid), each summing its own tiles of a frame into its row."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _fit(name: str, smem: int, th: int, tw: int) -> None:
+    if smem > SMEM_BYTES or tw % 8 or th < 1:
+        raise ValueError(f'{name}: tile {th}x{tw}: not a tile the kernel '
+                         'takes')
+
+
+def naf_gate(y: torch.Tensor, hw: torch.Tensor | None, prep: dict, *,
+             tile: tuple[int, int] | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """[CAB2: hw2 = dw3x3(hw)] -> LayerNorm over [y; hw2] folded into the
     expand to 2n -> RepConv2 -> SimpleGate.  ``hw=None`` for CAB1.
 
-    y: (T, n, H, W); hw: (T, add_c, H, W).  Returns g (T, n, H, W) and its
-    float32 channel sums (T, n)."""
+    y: (T, n, H, W), n in 32, 48, 64, 80; hw: (T, add_c, H, W).  ``tile``:
+    the kernel's output tile, else ``naf_gate_tile``'s.  Returns g (T, n,
+    H, W) and its float32 channel sums (T, n)."""
     if not _on_cuda(y):
         return naf_gate_plain(y, hw, prep)
-    wg, c1, c2, dw0, dwc = (prep[k] for k in ('wg', 'c1', 'c2', 'dw0', 'dwc'))
-    code = _check('naf_gate', y, hw, f32=(wg, c1, c2, dw0, dwc))
+    wg, c1, c2, dw0, dwc = (prep[k] for k in ('wg_p', 'c1', 'c2', 'dw0',
+                                              'dwc'))
+    code = _check('naf_gate', y, hw, wg, f32=(c1, c2, dw0, dwc))
     t, n, h, w = y.shape
     add_c = 0 if hw is None else hw.shape[1]
-    if ((hw is None) != (dwc is None) or n % 8
+    size = y.element_size()
+    np_, kp = mma_layout(n + add_c, 2 * n, size, expand=True)
+    if ((hw is None) != (dwc is None) or add_c % 8
             or (hw is not None and hw.shape != (t, add_c, h, w))
-            or wg.shape != (n + add_c, 2 * n) or dw0.shape != (2 * n, 9)
+            or wg.shape != (1, np_, kp) or dw0.shape != (2 * n, 9)
             or (dwc is not None and dwc.shape != (add_c, 9))):
         raise ValueError(f'naf_gate: y {tuple(y.shape)}, hw '
-                         f'{None if hw is None else tuple(hw.shape)}, wg '
+                         f'{None if hw is None else tuple(hw.shape)}, wg_p '
                          f'{tuple(wg.shape)}')
-    th, tw = naf_gate_tile(n, add_c, y.element_size())
-    n_blocks = -(-h // th) * -(-w // tw)
+    th, tw = tile or naf_gate_tile(n, add_c, size)
+    _fit('naf_gate', naf_gate_smem(n, add_c, size, th, tw), th, tw)
+    rows = _sum_rows(y.device)
     g = torch.empty_like(y)
-    part = torch.empty((t, n_blocks, n), device=y.device, dtype=torch.float32)
+    part = torch.zeros((t, rows, n), device=y.device, dtype=torch.float32)
     lib = _build.library()
     _build.check(lib.shiftnet_naf_gate(
         code, y.data_ptr(), None if hw is None else hw.data_ptr(),
         wg.data_ptr(), c1.data_ptr(), c2.data_ptr(), dw0.data_ptr(),
         None if dwc is None else dwc.data_ptr(), g.data_ptr(), part.data_ptr(),
-        t, n, add_c, h, w, th, tw, LN_EPS, _stream()), 'naf_gate')
+        t, n, add_c, h, w, th, tw, rows, LN_EPS, _stream()), 'naf_gate')
     LAUNCHES['naf_gate'] += 1
     return g, part.sum(dim=1)
 
 
 # -- G: naf_rep ----------------------------------------------------------------
 
-def naf_rep_smem(n: int, itemsize: int, th: int, tw: int) -> int:
-    """Shared memory of one ``naf_rep`` block (csrc/naf_rep.cu): g with a
-    2-pixel halo and the RepConv output r of the tile."""
-    return n * ((th + 4) * (tw + 4) + th * tw) * itemsize
+def naf_rep_smem(n: int, itemsize: int, th: int, tw: int,
+                 group: int = 8) -> int:
+    """Shared memory of one ``naf_rep`` block (csrc/naf_rep.cu,
+    naf_rep_smem): g with a 2-pixel halo (later the s tile), r of the tile,
+    both pixel-major, the expand's panel and, grouped, all groups' 5x5
+    panels."""
+    sp = mma_pitch(n, itemsize)
+    tt = th * tw
+    g = max((th + 4) * (tw + 4) * sp, n * (tt + SBUF_PAD))
+    w_grp = (n // 8) * 25 * 8 * mma_pitch(8, itemsize) if group == 8 else 0
+    return (g + tt * sp + w_grp + 2 * n * sp) * itemsize
 
 
-def naf_rep_tile(n: int, itemsize: int) -> tuple[int, int]:
-    return _tile('naf_rep', lambda th, tw: naf_rep_smem(n, itemsize, th, tw))
+def naf_rep_tile(n: int, itemsize: int, group: int = 8) -> tuple[int, int]:
+    """Output tile (TH, TW) of ``naf_rep`` (``chw._pick_tile``)."""
+    return _pick_tile(TILES, lambda th, tw: naf_rep_smem(
+        n, itemsize, th, tw, group), itemsize)
 
 
 def naf_rep_plain(g, cag, prep):
@@ -239,36 +312,42 @@ def naf_rep_plain(g, cag, prep):
     return s, s.float().sum(dim=(2, 3))
 
 
-def naf_rep(g: torch.Tensor, cag: torch.Tensor | None,
-            prep: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def naf_rep(g: torch.Tensor, cag: torch.Tensor | None, prep: dict, *,
+            tile: tuple[int, int] | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """[g * cag] -> merged RepConv (grouped, or depthwise when ``prep['rep']``
-    is (n, 1, 5, 5)) -> expand n -> 2n -> SimpleGate2.  ``cag``: the (T, n)
-    mid-CALayer scale in g's type, or None.  Returns s (T, n, H, W) and its
-    float32 channel sums (T, n)."""
+    is (n, 1, 5, 5)) -> expand n -> 2n -> SimpleGate2.  g: (T, n, H, W), n
+    in 32, 48, 64, 80; ``cag``: the (T, n) mid-CALayer scale in g's type, or
+    None.  ``tile``: the kernel's output tile, else ``naf_rep_tile``'s.
+    Returns s (T, n, H, W) and its float32 channel sums (T, n)."""
     if not _on_cuda(g):
         return naf_rep_plain(g, cag, prep)
-    rep, w4 = prep['rep'], prep['w4']
-    code = _check('naf_rep', g, cag, f32=(rep, w4))
-    t, n, h, w = g.shape
+    rep, w4 = prep['rep'], prep['w4_p']
     cin_g = rep.shape[1]
-    if (n % 8 or cin_g not in REP_GROUPS or rep.shape != (n, cin_g, 5, 5)
-            or w4.shape != (n, 2 * n)
+    # grouped: the packed panels in g's type; depthwise: float32 [n][25]
+    rep_k = prep['rep_p'] if cin_g == 8 else rep
+    code = _check('naf_rep', g, cag, w4, *((rep_k,) if cin_g == 8 else ()),
+                  f32=(rep,))
+    t, n, h, w = g.shape
+    size = g.element_size()
+    np_, kp = mma_layout(n, 2 * n, size, expand=True)
+    if (cin_g not in REP_GROUPS or rep.shape != (n, cin_g, 5, 5)
+            or w4.shape != (1, np_, kp)
+            or (cin_g == 8 and rep_k.shape != (n // 8, 25, 8,
+                                               mma_pitch(8, size)))
             or (cag is not None and cag.shape != (t, n))):
         raise ValueError(f'naf_rep: g {tuple(g.shape)}, rep '
-                         f'{tuple(rep.shape)}, w4 {tuple(w4.shape)}')
-    th, tw = naf_rep_tile(n, g.element_size())
-    n_blocks = -(-h // th) * -(-w // tw)
-    if cin_g == 8:  # [group][input channel][tap][8 output channels]
-        rep_k = rep.view(n // 8, 8, 8, 25).permute(0, 2, 3, 1).contiguous()
-    else:  # depthwise: [channel][tap], as it comes
-        rep_k = rep
+                         f'{tuple(rep.shape)}, w4_p {tuple(w4.shape)}')
+    th, tw = tile or naf_rep_tile(n, size, cin_g)
+    _fit('naf_rep', naf_rep_smem(n, size, th, tw, cin_g), th, tw)
+    rows = _sum_rows(g.device)
     s = torch.empty_like(g)
-    part = torch.empty((t, n_blocks, n), device=g.device, dtype=torch.float32)
+    part = torch.zeros((t, rows, n), device=g.device, dtype=torch.float32)
     lib = _build.library()
     _build.check(lib.shiftnet_naf_rep(
         code, g.data_ptr(), None if cag is None else cag.data_ptr(),
         rep_k.data_ptr(), w4.data_ptr(), s.data_ptr(), part.data_ptr(), t, n,
-        cin_g, h, w, th, tw, _stream()), 'naf_rep')
+        cin_g, h, w, th, tw, rows, _stream()), 'naf_rep')
     LAUNCHES['naf_rep'] += 1
     return s, part.sum(dim=1)
 

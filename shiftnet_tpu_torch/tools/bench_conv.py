@@ -1,7 +1,8 @@
-"""Times of the ``cab_front`` and ``conv`` kernels at the main path's shapes,
-beside their plain versions, cuDNN and their bounds.
+"""Times of the tensor-core kernels (``cab_front``, ``conv``, ``naf_gate``,
+``naf_rep``) at the main path's shapes, beside their plain versions, cuDNN
+and their bounds.
 
-  python -m shiftnet_tpu_torch.tools.bench_conv [--tiles] [--f32]
+  python -m shiftnet_tpu_torch.tools.bench_conv [--tiles] [--f32] [--only K]
 
 Each shape is one that ``chip_smoke.py``'s kernel phase checks (T = 4,
 seeded inputs made on the card): for each, the kernel's median time, its
@@ -10,9 +11,11 @@ plain version's time (two cuDNN convs and a PReLU for ``cab_front``), one
 ``F.conv2d`` of the same conv where one call computes it, and the bound:
 the larger of the bytes over 3.35 TB/s and the operations over the
 type's peak.  ``--tiles`` also times the kernels at every output
-tile of ``CAB_TILES`` / ``CONV_TILES`` that fits, the default pick marked
-``*``; ``--f32`` adds the float32 forms (with ``--tiles``, at every tile
-too).
+tile of ``CAB_TILES`` / ``CONV_TILES`` / ``naf_chw.TILES`` that fits, the
+default pick marked ``*``; ``--f32`` adds the float32 forms (with
+``--tiles``, at every tile too); ``--only`` times one kernel family
+(``cab``, ``conv`` or ``naf``).  The naf blocks' weights are seeded
+``init_state`` weights of a CAB2 / CAB1, through ``prep_naf``.
 
 The script reads only the ops' public functions, so it also times an
 older checkout of the port: ``PYTHONPATH=<checkout> python
@@ -26,7 +29,8 @@ import argparse
 import torch
 import torch.nn.functional as F
 
-from shiftnet_tpu_torch.ops import chw
+from shiftnet_tpu_torch.models import init_state, layers
+from shiftnet_tpu_torch.ops import chw, naf_chw
 from shiftnet_tpu_torch.tools.timing import card, median_ms, require_cuda
 
 H, W, T = 720, 1280, 4
@@ -53,6 +57,17 @@ CONV_SHAPES = (
     (3, 14, 3, 1, True, False, H, W),              # small: feat_extract
     (14, 3, 5, 1, False, False, H, W),             # small: conv_last
 )
+
+# naf_gate: (n, CAB2, h, w), the big variants' three Encoder2 levels, then
+# CAB1 and the small variants' width; naf_rep: (n, depthwise, cag, h, w).
+GATE_SHAPES = ((80, True, H // 2, W // 2), (80, False, H // 2, W // 2),
+               (80, True, H // 4, W // 4), (80, True, H // 8, W // 8),
+               (64, True, H // 2, W // 2), (64, False, H // 2, W // 2))
+REP_SHAPES = ((80, False, False, H // 2, W // 2),
+              (80, False, True, H // 2, W // 2),
+              (80, False, False, H // 4, W // 4),
+              (64, True, False, H // 2, W // 2),
+              (64, True, True, H // 2, W // 2))
 
 
 def _randn(shape, seed, dtype, scale=1.0):
@@ -122,12 +137,75 @@ def bench_conv(dtype, tiles):
         del x
 
 
+def _naf_prep(n, cab2, depthwise, dtype, seed):
+    kw = dict(kernel_size=5, reduction=4, mid_ca=True, last_bias=True,
+              repconv_depthwise=depthwise)
+    mod = layers.CAB2(n, n // 2, **kw) if cab2 else layers.CAB1(n, **kw)
+    mod.load_state_dict(init_state(mod, seed), strict=True)
+    p = {k: v.detach().cuda() for k, v in mod.named_parameters()}
+    return naf_chw.prep_naf(p, '', dtype, mid_ca=True, last_bias=True)
+
+
+def _naf_runs(tiles, smem, pick):
+    """[(tag, kwargs)]: the default tile, or with ``tiles`` every tile of
+    ``naf_chw.TILES`` that fits (``smem``), the pick (``pick()``) marked."""
+    if not tiles:
+        return [('', {})]
+    best = pick()
+    return [(f'{th}x{tw}{"*" if (th, tw) == best else ""}',
+             dict(tile=(th, tw))) for th, tw in naf_chw.TILES
+            if smem(th, tw) <= chw.SMEM_BYTES]
+
+
+def bench_naf(dtype, tiles):
+    size = torch.tensor([], dtype=dtype).element_size()
+    for i, (n, cab2, h, w) in enumerate(GATE_SHAPES):
+        prep = _naf_prep(n, cab2, n == 64, dtype, 300 + i)
+        add_c = n // 2 if cab2 else 0
+        y = _randn((T, n, h, w), 400 + i, dtype)
+        hw = _randn((T, add_c, h, w), 500 + i, dtype) if cab2 else None
+        px, cin = T * h * w, n + add_c
+        ops = 2 * px * (2 * n * cin + 9 * add_c + 9 * 2 * n) + px * n
+        nbytes = (2 * n + add_c) * px * size
+        plain = median_ms(lambda: naf_chw.naf_gate_plain(y, hw, prep))
+        label = f'naf_gate {"CAB2" if cab2 else "CAB1"} n={n} {h}x{w}'
+        runs = _naf_runs(
+            tiles, lambda th, tw: naf_chw.naf_gate_smem(n, add_c, size, th,
+                                                        tw),
+            lambda: naf_chw.naf_gate_tile(n, add_c, size))
+        for tag, kw in runs:
+            ms = median_ms(lambda: naf_chw.naf_gate(y, hw, prep, **kw))
+            _line(label, ms, ops, nbytes, dtype, plain, None, tag)
+        del y, hw
+    for i, (n, dw, opts, h, w) in enumerate(REP_SHAPES):
+        prep = _naf_prep(n, True, dw, dtype, 600 + i)
+        g = _randn((T, n, h, w), 700 + i, dtype)
+        cag = torch.rand((T, n), device='cuda').to(dtype) if opts else None
+        group = 1 if dw else 8
+        px = T * h * w
+        ops = 2 * px * (25 * group * n + 2 * n * n)
+        nbytes = 2 * n * px * size
+        plain = median_ms(lambda: naf_chw.naf_rep_plain(g, cag, prep))
+        label = (f'naf_rep{" depthwise" if dw else ""} n={n} {h}x{w}'
+                 f'{" cag" if opts else ""}')
+        runs = _naf_runs(
+            tiles, lambda th, tw: naf_chw.naf_rep_smem(n, size, th, tw,
+                                                       group),
+            lambda: naf_chw.naf_rep_tile(n, size, group))
+        for tag, kw in runs:
+            ms = median_ms(lambda: naf_chw.naf_rep(g, cag, prep, **kw))
+            _line(label, ms, ops, nbytes, dtype, plain, None, tag)
+        del g
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--tiles', action='store_true',
                     help='time the kernels at every tile that fits')
     ap.add_argument('--f32', action='store_true',
                     help='also time the float32 forms')
+    ap.add_argument('--only', choices=('cab', 'conv', 'naf'),
+                    help='time one kernel family')
     args = ap.parse_args(argv)
     require_cuda('bench_conv')
     torch.backends.cudnn.allow_tf32 = False
@@ -137,8 +215,10 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         for dtype in (torch.bfloat16,) + ((torch.float32,) if args.f32
                                           else ()):
-            bench_cab(dtype, args.tiles)
-            bench_conv(dtype, args.tiles)
+            for name, bench in (('cab', bench_cab), ('conv', bench_conv),
+                                ('naf', bench_naf)):
+                if args.only in (None, name):
+                    bench(dtype, args.tiles)
     return 0
 
 

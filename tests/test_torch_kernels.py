@@ -399,6 +399,67 @@ def test_naf_kernels_depthwise_match_plain(cuda, dtype, cab2, opts, h, w):
     check_naf_kernels(cuda, dtype, 64, cab2, opts, h, w, depthwise=True)
 
 
+def naf_inputs(cuda, dtype, n, cab2, depthwise, h, w, seed):
+    p = naf_params(n, cab2, True, cuda, seed=seed, depthwise=depthwise)
+    prep = naf_chw.prep_naf(p, '', dtype, mid_ca=True, last_bias=True)
+    g = torch.Generator().manual_seed(seed)
+    y = randn(g, 2, n, h, w).to(cuda, dtype)
+    hw = (randn(g, 2, n // 2, h, w).to(cuda, dtype) if cab2 else None)
+    cag = torch.rand(2, n, generator=g).to(cuda, dtype)
+    return prep, y, hw, cag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,cab2,depthwise', [
+    (80, True, False), (80, False, False), (64, True, True),
+    (64, False, True), (48, True, False)])
+# ragged frames; at W = 72 the rows are whole 16-byte chunks, so the
+# tiles go out in 16-byte stores
+@pytest.mark.parametrize('h,w', [(37, 70), (21, 72)])
+def test_naf_gate_and_rep_every_tile_match_plain(cuda, n, cab2, depthwise,
+                                                 h, w, dt):
+    """The tensor-core naf_gate (CAB2 and CAB1) and naf_rep (grouped and
+    depthwise, with cag) at each output tile that fits, not only the
+    picked one."""
+    prep, y, hw, cag = naf_inputs(cuda, dt, n, cab2, depthwise, h, w,
+                                  seed=n + cab2)
+    size = y.element_size()
+    pg, pgsums = naf_chw.naf_gate_plain(y, hw, prep)
+    ps, psums = naf_chw.naf_rep_plain(pg, cag, prep)
+    add_c = 0 if hw is None else hw.shape[1]
+    group = 1 if depthwise else 8
+    gate_tiles = [t for t in naf_chw.TILES if naf_chw.naf_gate_smem(
+        n, add_c, size, *t) <= chw.SMEM_BYTES]
+    rep_tiles = [t for t in naf_chw.TILES if naf_chw.naf_rep_smem(
+        n, size, *t, group) <= chw.SMEM_BYTES]
+    assert gate_tiles and rep_tiles
+    for tile in gate_tiles:
+        got, gsums = naf_chw.naf_gate(y, hw, prep, tile=tile)
+        assert norm_err(got, pg) < TOL[dt], tile
+        assert norm_err(gsums, pgsums) < TOL[dt], tile
+    for tile in rep_tiles:
+        s, sums = naf_chw.naf_rep(pg, cag, prep, tile=tile)
+        assert norm_err(s, ps) < TOL[dt], tile
+        assert norm_err(sums, psums) < TOL[dt], tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,depthwise', [(80, False), (64, True)])
+def test_naf_gate_and_rep_are_deterministic(cuda, dtype, n, depthwise):
+    """Two launches on the same input give the same bits: every sum is
+    taken in one fixed order, with no atomics."""
+    prep, y, hw, cag = naf_inputs(cuda, dtype, n, True, depthwise, 29, 45,
+                                  seed=3)
+    g1, gs1 = naf_chw.naf_gate(y, hw, prep)
+    g2, gs2 = naf_chw.naf_gate(y, hw, prep)
+    assert torch.equal(g1, g2) and torch.equal(gs1, gs2)
+    s1, ss1 = naf_chw.naf_rep(g1, cag, prep)
+    s2, ss2 = naf_chw.naf_rep(g1, cag, prep)
+    assert torch.equal(s1, s2) and torch.equal(ss1, ss2)
+
+
 @pytest.mark.cuda
 def test_naf_kernels_reject_what_they_do_not_take(cuda):
     p = naf_params(48, True, False, cuda, seed=0)

@@ -12,11 +12,16 @@ LayerNorm of a zero pixel is then not zero, so a missing halo mask shows.
 The CUDA kernels are held against the plain versions on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 """
+import importlib
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from shiftnet_tpu.models import layers as jl
 from shiftnet_tpu.ops import chw as jchw
@@ -230,18 +235,147 @@ def test_encoder_shift_block_fused_matches_unfused_and_keeps_its_input():
 
 
 def test_gate_and_rep_tiles_fit_shared_memory():
-    for n, add_c in ((48, 24), (80, 40), (48, 0), (80, 0)):
+    for n, add_c in ((48, 24), (80, 40), (48, 0), (80, 0), (64, 32), (64, 0)):
         for itemsize in (2, 4):
             th, tw = naf_chw.naf_gate_tile(n, add_c, itemsize)
-            assert naf_chw.naf_gate_smem(n, add_c, itemsize, th,
-                                         tw) <= chw.SMEM_BYTES
-            th, tw = naf_chw.naf_rep_tile(n, itemsize)
-            assert naf_chw.naf_rep_smem(n, itemsize, th, tw) <= chw.SMEM_BYTES
-    # the sizes csrc/naf_gate.cu and naf_rep.cu state at n = 80
-    assert naf_chw.naf_gate_tile(80, 40, 2) == (16, 16)
-    assert naf_chw.naf_gate_smem(80, 40, 2, 16, 16) == 184048
-    assert naf_chw.naf_gate_tile(80, 40, 4) == (8, 16)
-    assert naf_chw.naf_gate_smem(80, 40, 4, 8, 16) == 203072
-    assert naf_chw.naf_rep_smem(80, 4, 16, 16) == 209920
+            smem = naf_chw.naf_gate_smem(n, add_c, itemsize, th, tw)
+            assert smem <= chw.SMEM_BYTES and tw % 8 == 0
+            if itemsize == 2:  # two blocks an SM
+                assert smem <= chw.TWO_PER_SM
+            # the g tile fits over the staged [y; hw2]
+            m1 = (th + 2) * (tw + 2)
+            assert n * (th * tw + naf_chw.SBUF_PAD) <= max(
+                m1 * chw.mma_pitch(n + add_c, itemsize),
+                n * (th * tw + naf_chw.SBUF_PAD))
+    for n, group in ((48, 8), (80, 8), (64, 1), (32, 1)):
+        for itemsize in (2, 4):
+            th, tw = naf_chw.naf_rep_tile(n, itemsize, group)
+            smem = naf_chw.naf_rep_smem(n, itemsize, th, tw, group)
+            assert smem <= chw.SMEM_BYTES and tw % 8 == 0
+            if itemsize == 2:
+                assert smem <= chw.TWO_PER_SM
+    # the sizes and tiles of the model widths, as csrc/naf_gate.cu and
+    # naf_rep.cu lay them out (tools/bench_conv.py --tiles measured the
+    # picks): naf_gate n = 80 bf16 8x8 = panel 160 x 120, [y; hw2] 100 x
+    # 120, e 100 x 168, and float32 LN statistics and c1, c2
+    assert naf_chw.naf_gate_tile(80, 40, 2) == (8, 8)
+    assert naf_chw.naf_gate_smem(80, 40, 2, 8, 8) == 98080 == (
+        (160 * 120 + 100 * 120 + 100 * 168) * 2 + (2 * 100 + 4 * 80) * 4)
+    assert naf_chw.naf_gate_tile(80, 40, 4) == (8, 8)
+    assert naf_chw.naf_gate_smem(80, 40, 4, 8, 8) == 198240
+    assert naf_chw.naf_gate_tile(64, 32, 2) == (8, 16)
+    # naf_rep: g 12 x 12 (and 2-pixel halo) x 88, r 64 x 88, the groups'
+    # panels 10 x 25 x 8 x 8, the expand's 160 x 88
+    assert naf_chw.naf_rep_tile(80, 2, 8) == (8, 8)
+    assert naf_chw.naf_rep_smem(80, 2, 8, 8, 8) == 96768 == (
+        144 * 88 + 64 * 88 + 10 * 25 * 8 * 8 + 160 * 88) * 2
+    assert naf_chw.naf_rep_smem(80, 4, 8, 8, 8) == 219648
+    assert naf_chw.naf_rep_tile(64, 2, 1) == (16, 16)
 
 
+def norm_t(a, b):
+    return norm_err(a.numpy(), b.numpy())
+
+
+WIDTHS = [pytest.param(n, size, id=f'{n}-{size}') for n in (48, 64, 80)
+          for size in (2, 4)]
+DTYPE = {2: torch.bfloat16, 4: torch.float32}
+
+
+@pytest.mark.parametrize('n,itemsize', WIDTHS)
+def test_packed_expand_panels_rebuild_the_expands(n, itemsize):
+    """naf_gate's panel ``wg_p`` (output channels in order) and naf_rep's
+    ``w4_p`` (the gate interleave of ``gate_rows``) rebuild
+    ``einsum('io,tihw->tohw', w, x)`` from their rows; each 16 rows of
+    ``w4_p`` hold 8 channels o and then their SimpleGate2 partners o + n;
+    padding is zero and a row is an odd number of 16-byte units."""
+    mod, _, _, add_c = naf_module(n, True, False, False, seed=n + itemsize)
+    prep = naf_chw.prep_naf(dict(mod.named_parameters()), '',
+                            DTYPE[itemsize])
+    cin = n + add_c
+    rows = naf_chw.gate_rows(n)
+    assert sorted(rows.tolist()) == list(range(2 * n))
+    r = torch.arange(2 * n)
+    first = (r % 16) < 8
+    assert torch.equal(rows[r[~first]], rows[r[first]] + n)
+    for key, w, c_in, order in (('wg_p', prep['wg'], cin, r),
+                                ('w4_p', prep['w4'], n, rows)):
+        panel = prep[key]
+        np_, kp = chw.mma_layout(c_in, 2 * n, itemsize, expand=True)
+        assert panel.shape == (1, np_, kp) and panel.dtype == DTYPE[itemsize]
+        assert (kp * itemsize // 16) % 2 == 1 and not panel[..., c_in:].any()
+        x = torch.from_numpy(rand((2, c_in, 5, 7), n))
+        want = torch.einsum('io,tihw->tohw', w, x)
+        got = torch.einsum('ri,tihw->trhw', panel[0, :, :c_in].float(), x)
+        assert norm_t(got, want[:, order]) < 1e-5  # float32, reordered
+
+
+@pytest.mark.parametrize('n,itemsize', WIDTHS)
+def test_packed_group_panels_rebuild_the_grouped_conv(n, itemsize):
+    """``rep_p`` (``pack_groups``: per group and tap, 8 output rows of the
+    group's 8 input channels) rebuilds ``F.conv2d(x, rep, groups=n // 8)``
+    as a sum over the 25 taps of each group's shifted 8 x 8 product."""
+    mod, _, _, _ = naf_module(n, True, False, False, seed=2 * n + itemsize)
+    prep = naf_chw.prep_naf(dict(mod.named_parameters()), '',
+                            DTYPE[itemsize])
+    panels = prep['rep_p']
+    kp = chw.mma_pitch(8, itemsize)
+    assert panels.shape == (n // 8, 25, 8, kp)
+    assert panels.dtype == DTYPE[itemsize] and not panels[..., 8:].any()
+    x = torch.from_numpy(rand((2, n, 9, 11), n))
+    want = F.conv2d(x, prep['rep'], padding=2, groups=n // 8)
+    xp = F.pad(x, (2, 2, 2, 2))
+    got = torch.zeros_like(want)
+    for grp in range(n // 8):
+        ch = slice(8 * grp, 8 * grp + 8)
+        for tap in range(25):
+            ky, kx = divmod(tap, 5)
+            win = xp[:, ch, ky:ky + 9, kx:kx + 11]
+            got[:, ch] += torch.einsum(
+                'oj,tjhw->tohw', panels[grp, tap, :, :8].float(), win)
+    assert norm_t(got, want) < 1e-5  # float32 sums of 200 terms, reordered
+    dw, _, _, _ = naf_module(64, True, False, False, seed=1, depthwise=True)
+    prep = naf_chw.prep_naf(dict(dw.named_parameters()), '', DTYPE[itemsize])
+    assert prep['rep_p'] is None  # depthwise: the CUDA cores read rep
+
+
+def test_expand_layouts_match_the_dispatch_table():
+    """``mma_layout(..., expand=True)`` takes exactly the expand rows of
+    ``dispatch_np<true>`` in csrc/conv_core.cuh (two warp columns of an
+    even number of n8 tiles each: a gate pair in one warp): Np = 2n for n
+    = 32, 48, 64, 80; the plain layout still stops at 112."""
+    src = (Path(chw.__file__).parents[1] / 'csrc' / 'conv_core.cuh'
+           ).read_text()
+    block = src[src.index('if constexpr (kExpand)'):src.index('} else {',
+                                                            src.index(
+        'if constexpr (kExpand)'))]
+    table = [tuple(map(int, m)) for m in
+             re.findall(r'SHIFTNET_NP\((\d+), (\d+), (\d+)\)', block)]
+    assert [np_ for np_, _, _ in table] == list(chw.EXPAND_NP)
+    assert all(wn == 2 and ntw % 2 == 0 and np_ == 8 * ntw * wn
+               for np_, ntw, wn in table)
+    for n in (32, 48, 64, 80):
+        for size in (2, 4):
+            assert chw.mma_layout(n, 2 * n, size, expand=True) == (
+                2 * n, chw.mma_pitch(n, size))
+    for np_ in (96, 128, 160):
+        assert np_ in chw.EXPAND_NP
+    for c_out in (128, 160):
+        with pytest.raises(ValueError, match='112'):
+            chw.mma_layout(80, c_out, 2)
+    with pytest.raises(ValueError, match='expand'):
+        chw.mma_layout(40, 80, 2, expand=True)
+
+
+@pytest.mark.parametrize('tool', ['bench_conv', 'phase_naf'])
+def test_naf_timing_tools_need_the_card(tool, monkeypatch):
+    """The tools that time the naf kernels raise without a CUDA device (no
+    number is taken on the CPU), and phase_naf adds its build flag only
+    once it has a card."""
+    from shiftnet_tpu_torch.ops import _build
+    mod = importlib.import_module(f'shiftnet_tpu_torch.tools.{tool}')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    flags = list(_build.NVCC_FLAGS)
+    with pytest.raises(SystemExit, match='needs a CUDA device'):
+        mod.main(['--only', 'naf'] if tool == 'bench_conv' else [])
+    assert _build.NVCC_FLAGS == flags
