@@ -10,9 +10,9 @@ Phases, each of which must pass:
 2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
    nine model kernels and the four probe kernels) into one library (one
    nvcc per source, in parallel), then count the tensor-core (``HMMA``)
-   instructions in the SASS of the ``cab_front``, ``conv``, ``naf_gate``
-   and ``naf_rep`` kernels, both types (``cuobjdump -sass``): every
-   instantiation must have some.
+   instructions in the SASS of the ``cab_front``, ``conv``, ``naf_gate``,
+   ``naf_rep``, ``naf_back`` and ``up_skip`` kernels, both types
+   (``cuobjdump -sass``): every instantiation must have some.
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
@@ -197,7 +197,8 @@ def device_phase():
 # The kernel templates that run on the tensor cores (mma.sync), by name in
 # the SASS: every instantiation must hold HMMA instructions.
 MMA_KERNELS = ('cab_front_mma_kernel', 'conv_mma_kernel',
-               'naf_gate_mma_kernel', 'naf_rep_mma_kernel')
+               'naf_gate_mma_kernel', 'naf_rep_mma_kernel',
+               'naf_back_mma_kernel', 'up_skip_mma_kernel')
 
 
 def _hmma_counts(lib):
@@ -483,7 +484,8 @@ def _cases():
                 ca = unit(rng, (T_CHECK, n), dt)
                 return Case(lambda: naf_chw.naf_back(y, s, ca, prep),
                             lambda: naf_chw.naf_back_plain(y, s, ca, prep),
-                            [y, s, ca, prep['w7'], prep['beta'], prep['b7']],
+                            [y, s, ca, prep['w7_p'], prep['beta'],
+                             prep['b7']],
                             2 * T_CHECK * h * w * n * n)
             cases.append(('naf_rep', f'n={n} {h}x{w}'
                           f'{" cag" if opts else ""}', rep))
@@ -585,7 +587,7 @@ def _small_cases(arr, wgt, unit, naf_prep):
         ca = unit(rng, (T_CHECK, n), dt)
         return Case(lambda: naf_chw.naf_back(y, s, ca, prep),
                     lambda: naf_chw.naf_back_plain(y, s, ca, prep),
-                    [y, s, ca, prep['w7'], prep['beta'], prep['b7']],
+                    [y, s, ca, prep['w7_p'], prep['beta'], prep['b7']],
                     2 * T_CHECK * h * w * n * n)
     cases.append(('naf_back', f'n={n} {h}x{w} b7', back))
     return cases

@@ -7,7 +7,8 @@
 // accuracy where one TF32 product keeps about three decimal digits.  It is
 // a device building block, not a kernel: cab_front.cu, conv.cu,
 // naf_gate.cu and naf_rep.cu stage their tiles and call conv_tile (and
-// naf_rep.cu's grouped 5x5, group_tile).
+// naf_rep.cu's grouped 5x5, group_tile); naf_back.cu and up_skip.cu run
+// their 1x1 products on channel-major tiles with cm_tile.
 //
 // The product.  Output pixels are the M rows, output channels the N
 // columns, and (tap, input channel) the K depth: acc[p][co] = sum over taps
@@ -139,6 +140,25 @@ __device__ __forceinline__ void ldsm_x1(uint32_t& r, const void* p) {
                : "=r"(r)
                : "r"(smem_u32(p))
                : "memory");
+}
+
+// The same loads with .trans: lane (g, t) receives elements (2t, g) and
+// (2t + 1, g) of each stored 8 x 8 matrix, so a channel-major tile (rows of
+// 8 pixels of one channel) gives the A fragment of a pixel-major one.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p))
+      : "memory");
 }
 
 __device__ __forceinline__ void mma_k16(float* c, const uint32_t* a,
@@ -285,6 +305,84 @@ __device__ __forceinline__ void load_async(T* dst, const T* src,
 
 __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Every commit group but the newest complete.
+__device__ __forceinline__ void wait_async_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !in
+// (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// Row length (elements) of a channel-major tile of m pixels (cm_tile): m
+// rounded up to 16 (a fragment's pixels) plus 8, so a row is 16 bytes times
+// an odd number in bfloat16 and 8 words off a multiple of 32 banks in
+// float32.
+__host__ __device__ constexpr int cm_pitch(int m) {
+  return (m + 15) / 16 * 16 + 8;
+}
+
+// Channel planes c < C of one frame (plane elements each), pixels p0 .. p0
+// + P - 1, into dst[c * xp + k], zero from the plane's end on.  aligned
+// (the planes and p0 on the 16-byte grid, P a multiple of chunk<T>(), at
+// most blockDim.x chunks): 16-byte cp.async copies, a thread at one chunk
+// of every row it takes, in flight until the caller waits (no commit
+// here); else element loads, done on return.
+template <typename T>
+__device__ __forceinline__ void load_planes(T* dst, int xp, const T* src,
+                                            int C, long long plane,
+                                            long long p0, int P,
+                                            bool aligned) {
+  constexpr int CH = chunk<T>();
+  if (aligned) {
+    const int tid = threadIdx.x, q = P / CH;
+    const int step = blockDim.x / q;  // threads from step * q on idle
+    const int k = (tid % q) * CH;
+    const bool in = p0 + k < plane;
+    for (int c = tid < step * q ? tid / q : C; c < C; c += step)
+      cp_async16(dst + c * xp + k, in ? src + c * plane + p0 + k : src, in);
+  } else {
+    for (int i = threadIdx.x; i < C * P; i += blockDim.x) {
+      const int c = i / P, k = i - c * P;
+      dst[c * xp + k] =
+          p0 + k < plane ? src[c * plane + p0 + k] : from_f<T>(0.f);
+    }
+  }
+}
+
+// The reverse: src[c * xp + k] to the planes' pixels p0 + k < plane, 16
+// bytes a store where aligned.
+template <typename T>
+__device__ __forceinline__ void store_planes(T* dst, const T* src, int xp,
+                                             int C, long long plane,
+                                             long long p0, int P,
+                                             bool aligned) {
+  constexpr int CH = chunk<T>();
+  if (aligned) {
+    const int tid = threadIdx.x, q = P / CH;
+    const int step = blockDim.x / q, k = (tid % q) * CH;
+    if (p0 + k < plane)
+      for (int c = tid < step * q ? tid / q : C; c < C; c += step)
+        *reinterpret_cast<uint4*>(dst + c * plane + p0 + k) =
+            *reinterpret_cast<const uint4*>(src + c * xp + k);
+  } else {
+    for (int i = threadIdx.x; i < C * P; i += blockDim.x) {
+      const int c = i / P, k = i - c * P;
+      if (p0 + k < plane) dst[c * plane + p0 + k] = src[c * xp + k];
+    }
+  }
 }
 
 // Stage frame xt (NCHW plane per channel) rows y0..y0+SH-1, columns
@@ -741,6 +839,180 @@ __device__ __forceinline__ void group_tile(const T* src, int sp, int groups,
       const int p0 = (fs * MFW + i) * 16 + g;
       if (p0 < M) epi(p0, 8 * grp + t2, acc[i][0], acc[i][1]);
       if (p0 + 8 < M) epi(p0 + 8, 8 * grp + t2, acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+// A values times a per-channel scale, each product rounded to T as the
+// reference's s * ca is (a bfloat16 product is exact in float32, so one
+// rounding either way): the two bfloat16 of v by s[0], s[1].
+__device__ __forceinline__ uint32_t scale2(uint32_t v, const bf16* s) {
+  __nv_bfloat162 r = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(s));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// The first of the output channel pair that cm_tile hands its epilogue for
+// the warp's j-th n8 tile: fixed per thread, so an epilogue can keep
+// per-channel terms in registers.
+template <int NTW, int WN>
+__device__ __forceinline__ int cm_channel(int j) {
+  const int wn = (threadIdx.x >> 5) / (kWarps / WN);
+  return ((wn * NTW + j) << 3) + 2 * (threadIdx.x & 3);
+}
+
+// A 1x1 conv of a channel-major tile on the tensor cores (naf_back,
+// up_skip): acc[p][co] = sum over k < Kc of src[k * xp + p] * W[co][k] for
+// pixels p < M, W the one-tap panel [Np][KP] already in shared memory
+// (wbuf, pack_taps' layout).  The A operand is read as it is stored,
+// channel rows of pixels, so tiles come from NCHW planes by plain 16-byte
+// copies: ldmatrix.trans in bfloat16 (8 channel rows of 8 pixels), 32-bit
+// loads in float32; xp = cm_pitch(M) keeps both conflict-free.  Pixels up
+// to M rounded to 16 are read and their sums dropped; rows k < Kc must
+// hold numbers (the caller zeroes rows Cin .. Kc - 1).  With kScale, each
+// A value is first multiplied by scale[k] (Kc values in T, shared memory),
+// the product rounded to T.  A warp takes MFW m16 fragments at a time and
+// NTW n8 tiles.  Calls epi(p, j, co, v0, v1) with the float32 sums of
+// channels co = cm_channel<NTW, WN>(j) and co + 1 at pixel p.  No barrier:
+// the caller synchronises before (src, wbuf, scale written) and after
+// (before it reads what epi wrote).
+template <typename T, int NTW, int WN, int MFW, bool kScale, typename Epi>
+__device__ __forceinline__ void cm_tile(const T* src, int xp, int Kc,
+                                        const T* wbuf, int KP, int M,
+                                        const T* scale, Epi epi) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int WM = kWarps / WN;
+  constexpr int CH = chunk<T>();
+  using Full = Step<T, true>;
+  using Half = Step<T, false>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int frags = (M + 15) / 16;
+  const int kfull = Kc / (2 * CH) * (2 * CH);  // Kc - kfull is 0 or CH
+  const int nt0 = wn * NTW;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_k = ((lane >> 3) & 1) * CH;
+  const int bh_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  // bfloat16 A rows: matrices (pixels 0-7, 8-15) x (channels k .. k + 7,
+  // k + 8 .. k + 15), lanes 8 j .. 8 j + 7 addressing matrix j's rows
+  const int a_k = (lane & 7) + ((lane >> 4) << 3);
+  const int a_m = ((lane >> 3) & 1) << 3;
+
+  for (int f0 = wm * MFW; f0 < frags; f0 += WM * MFW) {
+    bool live[MFW];
+#pragma unroll
+    for (int i = 0; i < MFW; ++i) live[i] = f0 + i < frags;
+    float acc[MFW][NTW][4];
+#pragma unroll
+    for (int i = 0; i < MFW; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+    for (int k = 0; k < kfull; k += 2 * CH) {
+      typename Full::A a[MFW];
+#pragma unroll
+      for (int i = 0; i < MFW; ++i) {
+        if (!live[i]) continue;
+        const int m0 = (f0 + i) * 16;
+        uint32_t r[4];
+        if constexpr (kF32) {
+          const float* c0 = src + (size_t)(k + t4) * xp + m0 + g;
+          const float* c1 = c0 + (size_t)4 * xp;
+          float v[4] = {c0[0], c0[8], c1[0], c1[8]};
+          if constexpr (kScale) {
+            v[0] *= scale[k + t4];
+            v[1] *= scale[k + t4];
+            v[2] *= scale[k + t4 + 4];
+            v[3] *= scale[k + t4 + 4];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) r[e] = __float_as_uint(v[e]);
+        } else {
+          ldsm_x4_t(r, src + (size_t)(k + a_k) * xp + m0 + a_m);
+          if constexpr (kScale) {
+            r[0] = scale2(r[0], scale + k + 2 * t4);
+            r[1] = scale2(r[1], scale + k + 2 * t4);
+            r[2] = scale2(r[2], scale + k + 8 + 2 * t4);
+            r[3] = scale2(r[3], scale + k + 8 + 2 * t4);
+          }
+        }
+        Full::load_a(a[i], r);
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; j += 2) {
+        uint32_t r[4];
+        if (j + 1 < NTW)
+          ldsm_x4(r, wbuf + ((nt0 + j) * 8 + b_row) * KP + k + b_k);
+        else
+          ldsm_x2(r, wbuf + ((nt0 + j) * 8 + (lane & 7)) * KP + k + b_k);
+        typename Full::B b0, b1;
+        Full::load_b(b0, r);
+        if (j + 1 < NTW) Full::load_b(b1, r + 2);
+#pragma unroll
+        for (int i = 0; i < MFW; ++i) {
+          if (!live[i]) continue;
+          Full::mma(acc[i][j], a[i], b0);
+          if (j + 1 < NTW) Full::mma(acc[i][j + 1], a[i], b1);
+        }
+      }
+    }
+    if (kfull < Kc) {  // the half step: k8 in bfloat16, k4 in float32
+      typename Half::A a[MFW];
+#pragma unroll
+      for (int i = 0; i < MFW; ++i) {
+        if (!live[i]) continue;
+        const int m0 = (f0 + i) * 16;
+        uint32_t r[2];
+        if constexpr (kF32) {
+          const float* c0 = src + (size_t)(kfull + t4) * xp + m0 + g;
+          float v[2] = {c0[0], c0[8]};
+          if constexpr (kScale) {
+            v[0] *= scale[kfull + t4];
+            v[1] *= scale[kfull + t4];
+          }
+          r[0] = __float_as_uint(v[0]);
+          r[1] = __float_as_uint(v[1]);
+        } else {
+          ldsm_x2_t(r, src + (size_t)(kfull + (lane & 7)) * xp + m0 + a_m);
+          if constexpr (kScale) {
+            r[0] = scale2(r[0], scale + kfull + 2 * t4);
+            r[1] = scale2(r[1], scale + kfull + 2 * t4);
+          }
+        }
+        Half::load_a(a[i], r);
+      }
+#pragma unroll
+      for (int j = 0; j < NTW; j += 2) {
+        uint32_t r[2];
+        if (j + 1 < NTW)
+          ldsm_x2(r, wbuf + ((nt0 + j) * 8 + bh_row) * KP + kfull);
+        else
+          ldsm_x1(r[0], wbuf + ((nt0 + j) * 8 + (lane & 7)) * KP + kfull);
+        typename Half::B b0, b1;
+        Half::load_b(b0, r);
+        if (j + 1 < NTW) Half::load_b(b1, r + 1);
+#pragma unroll
+        for (int i = 0; i < MFW; ++i) {
+          if (!live[i]) continue;
+          Half::mma(acc[i][j], a[i], b0);
+          if (j + 1 < NTW) Half::mma(acc[i][j + 1], a[i], b1);
+        }
+      }
+    }
+    // Sums c0, c1 at (pixel g, channels 2t, 2t + 1); c2, c3 at pixel g + 8.
+#pragma unroll
+    for (int i = 0; i < MFW; ++i) {
+      if (!live[i]) continue;
+      const int p0 = (f0 + i) * 16 + g;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int co = cm_channel<NTW, WN>(j);
+        if (p0 < M) epi(p0, j, co, acc[i][j][0], acc[i][j][1]);
+        if (p0 + 8 < M) epi(p0 + 8, j, co, acc[i][j][2], acc[i][j][3]);
+      }
     }
   }
 }

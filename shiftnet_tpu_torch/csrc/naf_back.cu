@@ -9,126 +9,159 @@
 // projection, bias, scale and residual are float32 and the result is cast
 // once.  b7 is optional (the denoise variants' biased projection).
 //
-// One block covers one frame and 128 consecutive pixels of its plane: it
-// stages s * ca for all n channels in shared memory, and each thread owns
-// 8 output channels of 4 pixels (16-byte weight loads, w7 float32 [n][n]
-// input-major).  out may alias y: every element of y is read and then
-// written by the same thread, and s is a separate tensor, so the block
-// writes in place where the caller knows y is dead.
+// The projection runs on the tensor cores (conv_core.cuh, cm_tile: mma.sync
+// m16n8k16 in bfloat16, 3xTF32 in float32) over channel-major tiles, so a
+// tile comes in from the NCHW planes as plain 16-byte cp.async copies, with
+// no transposition: a tile is P = kBackPx consecutive pixels of one
+// frame's plane (no halo), s and y as [n][cm_pitch(P)], and ca; s * ca is
+// taken on the A fragments in registers.  The weight panel w7_p
+// [n][mma_pitch(n)] (packed once in the compute type, ops/naf_chw.py,
+// prep_naf) is loaded once per block: blocks are persistent, each walking
+// over (frame, tile) jobs in two stages, the next job's s, y and ca in
+// flight while this one's products, epilogue and stores run.  The epilogue
+// adds b7, scales by beta (both kept in registers for the thread's
+// channels) and adds y in float32, over y's tile in shared memory, which
+// then goes out as 16-byte stores.  Every element of y is read (copied in)
+// before the same element of out is written, and s is a separate tensor,
+// so out may alias y.  ops/naf_chw.py, naf_back_smem, mirrors the sizes.
 //
-// What bounds it: device memory bandwidth in principle, 3n values per
-// pixel (480 B in bf16 at n = 80: 1.32 ms per 40-frame 360x640 call at
-// 3.35 TB/s), against n * n = 6,400 multiply-adds per pixel on the CUDA
-// cores, which is about 2.3x longer at their 67 TFLOP/s.
-#include "common.cuh"
+// What bounds it: its bytes, s and y read and out written, 3n values a
+// pixel (480 B in bf16 at n = 80: 0.132 ms per 4-frame 360x640 call at
+// 3.35 TB/s); its n * n multiply-adds a pixel (11.8 GFLOP there) take about
+// 0.012 ms at the tensor cores' bf16 peak.  What holds it back from that
+// bound is its instruction issue: per tile, the copies' addressing, the
+// fragments' loads and scales and the epilogue (tools/bench_conv.py --only
+// back: fewer instructions a tile made it faster, where three or four
+// stages of loads in flight, or 256-pixel tiles, made it slower; PERF.md).
+#include "conv_core.cuh"
 
 namespace shiftnet {
 
-constexpr int kBackPx = 128;
-constexpr int kBackCob = 8;
-constexpr int kBackPxT = 4;
-constexpr int kBackThreads = 256;
+constexpr int kBackPx = 128;  // pixels a tile
+constexpr int kBackXp = core::cm_pitch(kBackPx);
 
+// Elements of one stage: s and y tiles [n][kBackXp], then ca [n].
+__host__ __device__ inline size_t naf_back_stage(int n) {
+  return 2 * (size_t)n * kBackXp + n;
+}
+
+// Two stages, then the panel.
 template <typename T>
-__global__ void naf_back_kernel(const T* y, const T* __restrict__ s,
-                                const T* __restrict__ ca,
-                                const float* __restrict__ w7,
-                                const float* __restrict__ beta,
-                                const float* __restrict__ b7, T* out, int n,
-                                long long plane) {
+__host__ __device__ inline size_t naf_back_smem(int n) {
+  return (2 * naf_back_stage(n) + (size_t)n * core::mma_pitch<T>(n)) *
+         sizeof(T);
+}
+
+template <typename T, int NTW, int WN>
+__global__ void __launch_bounds__(core::kThreads, sizeof(T) == 2 ? 2 : 1)
+    naf_back_mma_kernel(const T* y, const T* __restrict__ s,
+                        const T* __restrict__ ca, const T* __restrict__ w7,
+                        const float* __restrict__ beta,
+                        const float* __restrict__ b7, T* out, int T_, int n,
+                        long long plane, int tiles, bool aligned) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sc = reinterpret_cast<T*>(smem_raw);  // [n][kBackPx]
-  const int t = blockIdx.y;
-  const long long base = (long long)blockIdx.x * kBackPx;
-  const size_t frame = (size_t)t * n * plane;
+  constexpr int P = kBackPx, xp = kBackXp;
+  const int kp = core::mma_pitch<T>(n);
+  const size_t stage = naf_back_stage(n);
+  T* stages = reinterpret_cast<T*>(smem_raw);
+  T* wbuf = stages + 2 * stage;
+  const int jobs = T_ * tiles;
 
-  for (int i = threadIdx.x; i < n * kBackPx; i += blockDim.x) {
-    const int c = i / kBackPx;
-    const long long p = base + (i - c * kBackPx);
-    T v = from_f<T>(0.f);
-    if (p < plane)
-      v = from_f<T>(to_f(s[frame + c * plane + p]) *
-                    to_f(ca[(size_t)t * n + c]));
-    sc[i] = v;
-  }
-  __syncthreads();
-
-  const int items = (n / kBackCob) * (kBackPx / kBackPxT);
-  for (int i = threadIdx.x; i < items; i += blockDim.x) {
-    const int grp = i / (kBackPx / kBackPxT);
-    const int p0 = (i - grp * (kBackPx / kBackPxT)) * kBackPxT;
-    float acc[kBackCob][kBackPxT];
+  // beta and b7 of the thread's epilogue channels, in registers
+  float bs[NTW][2], bb[NTW][2];
 #pragma unroll
-    for (int j = 0; j < kBackCob; ++j)
+  for (int j = 0; j < NTW; ++j)
 #pragma unroll
-      for (int u = 0; u < kBackPxT; ++u) acc[j][u] = 0.f;
-    const T* sp = sc + p0;
-    const float* wp = w7 + grp * kBackCob;
-    for (int ci = 0; ci < n; ++ci) {
-      float v[kBackPxT];
-#pragma unroll
-      for (int u = 0; u < kBackPxT; ++u) v[u] = to_f(sp[u]);
-      const float4 wa = reinterpret_cast<const float4*>(wp)[0];
-      const float4 wb = reinterpret_cast<const float4*>(wp)[1];
-      const float w[kBackCob] = {wa.x, wa.y, wa.z, wa.w,
-                                 wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int j = 0; j < kBackCob; ++j)
-#pragma unroll
-        for (int u = 0; u < kBackPxT; ++u)
-          acc[j][u] = fmaf(w[j], v[u], acc[j][u]);
-      sp += kBackPx;
-      wp += n;
+    for (int e = 0; e < 2; ++e) {
+      const int co = core::cm_channel<NTW, WN>(j) + e;
+      bs[j][e] = beta[co];
+      bb[j][e] = b7 ? b7[co] : 0.f;
     }
-#pragma unroll
-    for (int j = 0; j < kBackCob; ++j) {
-      const int o = grp * kBackCob + j;
-      const float bias = b7 ? b7[o] : 0.f;
-      const float scale = beta[o];
-#pragma unroll
-      for (int u = 0; u < kBackPxT; ++u) {
-        const long long p = base + p0 + u;
-        if (p >= plane) break;
-        const size_t k = frame + o * plane + p;
-        out[k] = from_f<T>(to_f(y[k]) + (acc[j][u] + bias) * scale);
-      }
-    }
+  // The job's s, y and ca into a stage: one commit group.
+  auto load = [&](int job, T* dst) {
+    const int t = job / tiles;
+    const long long p0 = (long long)(job - t * tiles) * P;
+    const size_t frame = (size_t)t * n * plane;
+    core::load_planes(dst, xp, s + frame, n, plane, p0, P, aligned);
+    core::load_planes(dst + (size_t)n * xp, xp, y + frame, n, plane, p0, P,
+                      aligned);
+    core::load_planes(dst + 2 * (size_t)n * xp, n, ca + (size_t)t * n, 1,
+                      (long long)n, 0, n, aligned);
+    core::commit_async();
+  };
+  core::load_async(wbuf, w7, n * kp);  // the panel, once
+  if ((int)blockIdx.x < jobs) load(blockIdx.x, stages);
+  int i = 0;
+  for (int job = blockIdx.x; job < jobs; job += gridDim.x, ++i) {
+    T* cur = stages + (i & 1) * stage;
+    const int next = job + gridDim.x;
+    if (next < jobs)  // into the other stage, free since the last job's end
+      load(next, stages + ((i + 1) & 1) * stage);
+    else
+      core::commit_async();
+    core::wait_async_but_newest();  // this job's stage and the panel
+    __syncthreads();
+    T* ys = cur + (size_t)n * xp;
+    core::cm_tile<T, NTW, WN, WN, true>(
+        cur, xp, n, wbuf, kp, P, cur + 2 * (size_t)n * xp,
+        [&](int p, int j, int co, float v0, float v1) {
+          T* o = ys + (size_t)co * xp + p;
+          o[0] = from_f<T>(to_f(o[0]) + (v0 + bb[j][0]) * bs[j][0]);
+          o[xp] = from_f<T>(to_f(o[xp]) + (v1 + bb[j][1]) * bs[j][1]);
+        });
+    __syncthreads();
+    const int t = job / tiles;
+    core::store_planes(out + (size_t)t * n * plane, ys, xp, n, plane,
+                       (long long)(job - t * tiles) * P, P, aligned);
+    __syncthreads();  // the stage is free for the job after next
   }
+  core::wait_async();
 }
 
 template <typename T>
 static int launch_naf_back(const void* y, const void* s, const void* ca,
                            const void* w7, const void* beta, const void* b7,
                            void* out, int T_, int n, long long plane,
-                           cudaStream_t stream) {
-  const size_t smem = (size_t)n * kBackPx * sizeof(T);
-  cudaFuncSetAttribute(naf_back_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((unsigned)((plane + kBackPx - 1) / kBackPx), T_);
-  naf_back_kernel<T><<<grid, kBackThreads, smem, stream>>>(
-      static_cast<const T*>(y), static_cast<const T*>(s),
-      static_cast<const T*>(ca), static_cast<const float*>(w7),
-      static_cast<const float*>(beta), static_cast<const float*>(b7),
-      static_cast<T*>(out), n, plane);
-  return (int)cudaGetLastError();
+                           bool aligned, cudaStream_t stream) {
+  if (n % 8) return (int)cudaErrorInvalidValue;
+  const long long tiles = (plane + kBackPx - 1) / kBackPx;
+  if ((long long)T_ * tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = naf_back_smem<T>(n);
+  return core::dispatch_np(n, [&](auto ntw, auto wn) {
+    auto kern = naf_back_mma_kernel<T, decltype(ntw)::value,
+                                    decltype(wn)::value>;
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    const int jobs = T_ * (int)tiles;
+    const int blocks = core::persistent_grid(kern, smem, jobs, jobs);
+    kern<<<blocks, core::kThreads, smem, stream>>>(
+        static_cast<const T*>(y), static_cast<const T*>(s),
+        static_cast<const T*>(ca), static_cast<const T*>(w7),
+        static_cast<const float*>(beta), static_cast<const float*>(b7),
+        static_cast<T*>(out), T_, n, plane, (int)tiles, aligned);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace shiftnet
 
-// y, s, out: (T, n, H, W), out may be y; ca: (T, n) in y's type; w7
-// float32 [n][n] (input-major); beta float32 [n]; b7 float32 [n] or null.
-// n must be a multiple of 8.
+// y, s, out: (T, n, H, W), out may be y; ca: (T, n) in y's type; w7 the
+// projection's panel [n][mma_pitch(n)] in y's type (output channels on the
+// rows); beta float32 [n]; b7 float32 [n] or null.  n a multiple of 8, up
+// to 112.  aligned: the planes, ca and every pointer on the 16-byte grid
+// (16-byte copies), else element loads.
 extern "C" int shiftnet_naf_back(int dtype, const void* y, const void* s,
                                  const void* ca, const void* w7,
                                  const void* beta, const void* b7, void* out,
-                                 int T, int n, long long plane, void* stream) {
+                                 int T, int n, long long plane, int aligned,
+                                 void* stream) {
   using namespace shiftnet;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return launch_naf_back<__nv_bfloat16>(y, s, ca, w7, beta, b7, out, T, n,
-                                          plane, st);
+                                          plane, aligned != 0, st);
   if (dtype == kF32)
     return launch_naf_back<float>(y, s, ca, w7, beta, b7, out, T, n, plane,
-                                  st);
+                                  aligned != 0, st);
   return (int)cudaErrorInvalidValue;
 }

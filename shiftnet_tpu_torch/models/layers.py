@@ -307,7 +307,7 @@ class SkipUpSample(nn.Module):
 
     def forward(self, x, skip):
         if self.fused:
-            return chw.up_skip(x, self.up[1].weight.to(x.dtype), skip)
+            return chw.up_skip(x, self.up[1].weight, skip)
         return self.up(x) + skip
 
 

@@ -35,14 +35,15 @@ SIGNATURES = {
     'shiftnet_cab_back': [_I, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
     'shiftnet_conv': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P],
-    'shiftnet_up_skip': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'shiftnet_up_skip': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
     'shiftnet_shift_round': [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'shiftnet_naf_gate': [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _I, ctypes.c_float, _P],
     'shiftnet_naf_rep': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
     'shiftnet_naf_back': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          ctypes.c_longlong, _P],
+                          ctypes.c_longlong, _I, _P],
     'shiftnet_conv_cat': [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P],
     'shiftnet_mm_loop': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

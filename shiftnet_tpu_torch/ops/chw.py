@@ -138,6 +138,12 @@ def pack_taps(w: torch.Tensor, np_: int, kp: int) -> torch.Tensor:
     return F.pad(wt, (0, kp - c_in, 0, np_ - c_out)).contiguous()
 
 
+def cm_pitch(m: int) -> int:
+    """Row length (elements) of a channel-major tile of m pixels (naf_back,
+    up_skip): m rounded up to 16 plus 8 (``cm_pitch`` in conv_core.cuh)."""
+    return -(-m // 16) * 16 + 8
+
+
 def mma_weight_smem(taps: int, np_: int, kp: int, itemsize: int) -> int:
     """Shared memory of a conv's panels: whole (always for one tap), or
     two streamed taps."""
@@ -402,31 +408,90 @@ def conv_concat(xs: list[torch.Tensor], w: torch.Tensor,
 
 # -- D: up_skip --------------------------------------------------------------
 
+# Low-resolution tiles up_skip takes, in bfloat16's order of preference (the
+# halo recompute of the 1x1: 1.19x at 16 x 32, 1.33x at 8 x 32, 1.41x at 8
+# x 16); float32, one block an SM, ran faster at 8 x 32 at the wide widths
+# (tools/bench_conv.py --only up --tiles measures both orders).
+UP_TILES = ((16, 32), (8, 32), (8, 16))
+_UP_F32 = ((8, 32), (16, 32), (8, 16))
+
+
+def up_skip_smem(c_in: int, c_out: int, itemsize: int, th: int,
+                 tw: int) -> int:
+    """Shared memory of one ``up_skip`` block (csrc/up_skip.cu,
+    up_skip_smem): x on the tile and its 1-pixel halo and z, both
+    channel-major at ``cm_pitch``, and the panel."""
+    xp = cm_pitch((th + 2) * (tw + 2))
+    np_, kp = mma_layout(c_in, c_out, itemsize)
+    return ((pad_chunk(c_in, itemsize) + c_out) * xp + np_ * kp) * itemsize
+
+
+def up_skip_tile(c_in: int, c_out: int, itemsize: int) -> tuple[int, int]:
+    """Low-resolution tile (TH, TW) of ``up_skip`` (``_pick_tile``)."""
+    return _pick_tile(UP_TILES if itemsize == 2 else _UP_F32,
+                      lambda th, tw: up_skip_smem(c_in, c_out, itemsize, th,
+                                                  tw), itemsize)
+
+
+def up_panel(w11: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor-core panel of a SkipUpSample's 1x1 weight (Cout, Cin, 1,
+    1): (1, Np, KP) in ``dtype`` (``pack_taps`` at ``mma_layout``), the
+    weight rounded to dtype.  Packed once per weight: the panel is kept on
+    the weight tensor and reused while the weight's storage, version, type
+    and device and the panel's type stay the same (an in-place write such
+    as ``load_state_dict`` bumps the version).  An inference tensor, whose
+    version is not tracked, is packed anew at every call."""
+    c_out, c_in = w11.shape[:2]
+    np_, kp = mma_layout(c_in, c_out, torch.empty((), dtype=dtype
+                                                  ).element_size())
+    if w11.is_inference():
+        return pack_taps(w11.to(dtype), np_, kp)
+    key = (w11.data_ptr(), w11._version, w11.dtype, w11.device, dtype)
+    hit = getattr(w11, '_up_panel', None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_taps(w11.detach().to(dtype), np_, kp))
+        w11._up_panel = hit
+    return hit[1]
+
+
 def up_skip_plain(x, w11, skip):
     return F.conv2d(bilinear_up2x(x), w11) + skip
 
 
-def up_skip(x: torch.Tensor, w11: torch.Tensor,
-            skip: torch.Tensor) -> torch.Tensor:
+def up_skip(x: torch.Tensor, w11: torch.Tensor, skip: torch.Tensor, *,
+            tile: tuple[int, int] | None = None) -> torch.Tensor:
     """SkipUpSample: bilinear2x(conv1x1(x)) + skip, into a fresh output.
 
-    x: (T, Cin, h, w); w11: (Cout, Cin, 1, 1) in x's type; skip:
-    (T, Cout, 2h, 2w)."""
+    x: (T, Cin, h, w); w11: (Cout, Cin, 1, 1), in x's type or float32 (the
+    parameter itself, rounded to x's type; the kernel reads its panel,
+    ``up_panel``, packed once); skip: (T, Cout, 2h, 2w).  ``tile``: the
+    kernel's low-resolution tile, else ``up_skip_tile``'s."""
     if not _on_cuda(x):
-        return up_skip_plain(x, w11, skip)
-    code = _check('up_skip', x, w11, skip)
+        return up_skip_plain(x, w11.to(x.dtype), skip)
+    same, f32 = ((w11,), ()) if w11.dtype == x.dtype else ((), (w11,))
+    code = _check('up_skip', x, skip, *same, f32=f32)
     t, cin, h, w = x.shape
     cout = w11.shape[0]
     if w11.shape != (cout, cin, 1, 1) or skip.shape != (t, cout, 2 * h, 2 * w):
         raise ValueError(f'up_skip: w {tuple(w11.shape)}, skip '
                          f'{tuple(skip.shape)}, x {tuple(x.shape)}')
-    if cout * 10 * 18 * x.element_size() > SMEM_BYTES:
-        raise ValueError(f'up_skip: Cout={cout} does not fit in shared memory')
+    size = x.element_size()
+    th, tw = tile or up_skip_tile(cin, cout, size)
+    # csrc/up_skip.cu: a 16-byte blend item's place in a row is fixed per
+    # thread, so the 256 threads are a multiple of a row's items
+    if (up_skip_smem(cin, cout, size, th, tw) > SMEM_BYTES or tw % 4
+            or th < 1 or 256 % (2 * tw * size // 16)):
+        raise ValueError(f'up_skip: tile {th}x{tw} at {cin}->{cout}: not a '
+                         'tile the kernel takes')
+    wp = up_panel(w11, x.dtype)
     out = torch.empty_like(skip)
+    vec = (2 * w * size) % 16 == 0 and all(
+        v.data_ptr() % 16 == 0 for v in (skip, out))
     lib = _build.library()
     _build.check(lib.shiftnet_up_skip(
-        code, x.data_ptr(), w11.data_ptr(), skip.data_ptr(), out.data_ptr(),
-        t, cin, cout, h, w, _stream()), 'up_skip')
+        code, x.data_ptr(), wp.data_ptr(), skip.data_ptr(), out.data_ptr(),
+        t, cin, cout, wp.shape[1], wp.shape[2], h, w, th, tw, int(vec),
+        _stream()), 'up_skip')
     LAUNCHES['up_skip'] += 1
     return out
 
@@ -487,12 +552,12 @@ def tfr_unet(p: dict[str, torch.Tensor], x: torch.Tensor, *,
         y = cab(p, f'decoder_level3.{i}', y, inplace=True)
     skip2 = cab(p, 'skip_attn2', enc2)
     del enc2
-    y = up_skip(y, p['up32.up.1.weight'].to(y.dtype), skip2)
+    y = up_skip(y, p['up32.up.1.weight'], skip2)
     del skip2
     for i in range(3):
         y = cab(p, f'decoder_level2.{i}', y, inplace=True)
     skip1 = cab(p, 'skip_attn1', enc1)
     del enc1
-    y = up_skip(y, p['up21.up.1.weight'].to(y.dtype), skip1)
+    y = up_skip(y, p['up21.up.1.weight'], skip1)
     del skip1
     return cab(p, 'decoder_level1.0', y, inplace=True)

@@ -16,10 +16,11 @@ attention MLPs (``chw.ca_mlp``) as plain torch between them:
   SimpleGate2;
 - ``naf_back`` (H, ``csrc/naf_back.cu``): y + beta * (w7 . (s * ca) + b7).
 
-naf_gate's expand and naf_rep's grouped 5x5 and expand run on the
-tensor-core conv core (``csrc/conv_core.cuh``); their weight panels are
-packed once by ``prep_naf`` (``wg_p``, ``w4_p`` in the gate interleave of
-``gate_rows``, ``rep_p`` by ``pack_groups``).
+naf_gate's expand, naf_rep's grouped 5x5 and expand and naf_back's
+projection run on the tensor-core conv core (``csrc/conv_core.cuh``);
+their weight panels are packed once by ``prep_naf`` (``wg_p``, ``w4_p`` in
+the gate interleave of ``gate_rows``, ``rep_p`` by ``pack_groups``,
+``w7_p``).
 
 Dispatch is that of ``ops/chw``: a CUDA tensor launches the kernel or
 raises, a CPU tensor runs the plain version (``*_plain``), and each launch
@@ -38,13 +39,13 @@ import torch.nn.functional as F
 from shiftnet_tpu_torch.ops import _build
 from shiftnet_tpu_torch.ops.chw import (LAUNCHES, SMEM_BYTES, _check, _on_cuda,
                                         _pick_tile, _stream, ca_mlp,
-                                        mma_layout, mma_pitch, pack_taps,
-                                        prefix)
+                                        cm_pitch, mma_layout, mma_pitch,
+                                        pack_taps, prefix)
 from shiftnet_tpu_torch.ops.shift import gsts
 
 LN_EPS = 1e-6
 SBUF_PAD = 8      # csrc/naf_gate.cu, naf_rep.cu: output tile plane padding
-BACK_PX = 128     # csrc/naf_back.cu, kBackPx: pixels per block
+BACK_PX = 128     # csrc/naf_back.cu, kBackPx: pixels a tile
 TILES = ((16, 16), (8, 16), (8, 8))  # output tiles, largest first
 REP_GROUPS = (8, 1)  # RepConv input channels per group: big, small variants
 
@@ -87,7 +88,9 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
       interleave of ``gate_rows``;
     - ``rep_p`` (n/8, 25, 8, mma_pitch(8)) for the grouped RepConv
       (``pack_groups``), None for the depthwise one (the kernel reads
-      ``rep`` on the CUDA cores).
+      ``rep`` on the CUDA cores);
+    - ``w7_p`` (1, n, mma_pitch(n)): naf_back's projection, output
+      channels in order.
     """
     k = prefix(name)
 
@@ -110,6 +113,7 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
     rep = rep.to(dtype).float()
     wg = (w0 * gamma).t().to(dtype).float().contiguous()
     w4 = q(f'body.{4 + off}.weight').flatten(1).t().contiguous()
+    w7 = q(f'body.{7 + off}.weight').flatten(1).t().contiguous()
     size = torch.empty((), dtype=dtype).element_size()
     return {
         'wg': wg,
@@ -120,7 +124,7 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
                 else None),
         'rep': rep,
         'w4': w4,
-        'w7': q(f'body.{7 + off}.weight').flatten(1).t().contiguous(),
+        'w7': w7,
         'beta': q('beta').flatten(),
         'b7': q(f'body.{7 + off}.bias') if last_bias else None,
         'wg_p': pack_taps(wg.t()[:, :, None, None].to(dtype), 2 * n,
@@ -128,6 +132,8 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
         'w4_p': pack_taps(w4.t()[gate_rows(n), :, None, None].to(dtype),
                           2 * n, mma_pitch(n, size)),
         'rep_p': pack_groups(rep.to(dtype)) if cin_g == 8 else None,
+        'w7_p': pack_taps(w7.t()[:, :, None, None].to(dtype),
+                          *mma_layout(n, n, size)),
     }
 
 
@@ -363,28 +369,40 @@ def naf_back_plain(y, s, ca, prep, inplace=False):
     return y.copy_(out) if inplace else out.contiguous()
 
 
+def naf_back_smem(n: int, itemsize: int) -> int:
+    """Shared memory of one ``naf_back`` block (csrc/naf_back.cu,
+    naf_back_smem): two stages of the s and y tiles, channel-major at
+    ``cm_pitch(BACK_PX)``, and ca; the panel."""
+    stage = 2 * n * cm_pitch(BACK_PX) + n
+    return (2 * stage + n * mma_pitch(n, itemsize)) * itemsize
+
+
 def naf_back(y: torch.Tensor, s: torch.Tensor, ca: torch.Tensor, prep: dict,
              *, inplace: bool = False) -> torch.Tensor:
     """out = y + beta * (w7 . (s * ca) + b7).  ``ca``: (T, n) in y's type.
     ``inplace`` writes over y: only for callers that know y is dead."""
     if not _on_cuda(y):
         return naf_back_plain(y, s, ca, prep, inplace)
-    w7, beta, b7 = prep['w7'], prep['beta'], prep['b7']
-    code = _check('naf_back', y, s, ca, f32=(w7, beta, b7))
+    w7, w7_p, beta, b7 = prep['w7'], prep['w7_p'], prep['beta'], prep['b7']
+    code = _check('naf_back', y, s, ca, w7_p, f32=(w7, beta, b7))
     t, n, h, w = y.shape
+    size = y.element_size()
     if (n % 8 or s.shape != y.shape or ca.shape != (t, n)
             or w7.shape != (n, n) or beta.shape != (n,)
+            or w7_p.shape != (1, *mma_layout(n, n, size))
             or (b7 is not None and b7.shape != (n,))):
         raise ValueError(f'naf_back: y {tuple(y.shape)}, s {tuple(s.shape)}, '
-                         f'ca {tuple(ca.shape)}, w7 {tuple(w7.shape)}')
-    if n * BACK_PX * y.element_size() > SMEM_BYTES:
+                         f'ca {tuple(ca.shape)}, w7_p {tuple(w7_p.shape)}')
+    if naf_back_smem(n, size) > SMEM_BYTES:
         raise ValueError(f'naf_back: n={n} does not fit in shared memory')
     out = y if inplace else torch.empty_like(y)
+    aligned = (h * w * size) % 16 == 0 and all(
+        v.data_ptr() % 16 == 0 for v in (y, s, ca, out))
     lib = _build.library()
     _build.check(lib.shiftnet_naf_back(
-        code, y.data_ptr(), s.data_ptr(), ca.data_ptr(), w7.data_ptr(),
+        code, y.data_ptr(), s.data_ptr(), ca.data_ptr(), w7_p.data_ptr(),
         beta.data_ptr(), None if b7 is None else b7.data_ptr(),
-        out.data_ptr(), t, n, h * w, _stream()), 'naf_back')
+        out.data_ptr(), t, n, h * w, int(aligned), _stream()), 'naf_back')
     LAUNCHES['naf_back'] += 1
     return out
 

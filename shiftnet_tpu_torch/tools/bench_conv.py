@@ -1,6 +1,6 @@
 """Times of the tensor-core kernels (``cab_front``, ``conv``, ``naf_gate``,
-``naf_rep``) at the main path's shapes, beside their plain versions, cuDNN
-and their bounds.
+``naf_rep``, ``naf_back``, ``up_skip``) at the main path's shapes, beside
+their plain versions, cuDNN and their bounds.
 
   python -m shiftnet_tpu_torch.tools.bench_conv [--tiles] [--f32] [--only K]
 
@@ -11,11 +11,14 @@ plain version's time (two cuDNN convs and a PReLU for ``cab_front``), one
 ``F.conv2d`` of the same conv where one call computes it, and the bound:
 the larger of the bytes over 3.35 TB/s and the operations over the
 type's peak.  ``--tiles`` also times the kernels at every output
-tile of ``CAB_TILES`` / ``CONV_TILES`` / ``naf_chw.TILES`` that fits, the
-default pick marked ``*``; ``--f32`` adds the float32 forms (with
-``--tiles``, at every tile too); ``--only`` times one kernel family
-(``cab``, ``conv`` or ``naf``).  The naf blocks' weights are seeded
-``init_state`` weights of a CAB2 / CAB1, through ``prep_naf``.
+tile of ``CAB_TILES`` / ``CONV_TILES`` / ``naf_chw.TILES`` /
+``UP_TILES`` that fits, the default pick marked ``*`` (naf_back has one
+tile); ``--f32`` adds the float32 forms (with ``--tiles``, at every tile
+too); ``--only`` times one kernel family (``cab``, ``conv``, ``naf``
+(naf_gate and naf_rep), ``back`` (naf_back) or ``up`` (up_skip)).  The
+naf blocks' weights are seeded ``init_state`` weights of a CAB2 / CAB1,
+through ``prep_naf``; up_skip's weight is seeded in the activation type
+and its panel packed once, as the model's is, before the timed runs.
 
 The script reads only the ops' public functions, so it also times an
 older checkout of the port: ``PYTHONPATH=<checkout> python
@@ -68,6 +71,16 @@ REP_SHAPES = ((80, False, False, H // 2, W // 2),
               (80, False, False, H // 4, W // 4),
               (64, True, False, H // 2, W // 2),
               (64, True, True, H // 2, W // 2))
+# naf_back: (n, b7, h, w): the big variants' three Encoder2 levels, the
+# denoise variants' biased projection, the small variants' width.
+BACK_SHAPES = ((80, False, H // 2, W // 2), (80, True, H // 2, W // 2),
+               (80, False, H // 4, W // 4), (80, False, H // 8, W // 8),
+               (64, False, H // 2, W // 2))
+# up_skip: (cin, cout, h, w) at low resolution: the TFR U-Nets' up21 and
+# up32 and Encoder2's up21, big then small.
+UP_SHAPES = ((36, 24, H // 2, W // 2), (48, 36, H // 4, W // 4),
+             (80, 80, H // 4, W // 4), (18, 14, H // 2, W // 2),
+             (22, 18, H // 4, W // 4), (64, 64, H // 4, W // 4))
 
 
 def _randn(shape, seed, dtype, scale=1.0):
@@ -198,13 +211,59 @@ def bench_naf(dtype, tiles):
         del g
 
 
+def bench_back(dtype, tiles):
+    for i, (n, b7, h, w) in enumerate(BACK_SHAPES):
+        prep = _naf_prep(n, False, n == 64, dtype, 800 + i)
+        if not b7:
+            prep = dict(prep, b7=None)
+        y = _randn((T, n, h, w), 900 + i, dtype)
+        s = _randn((T, n, h, w), 1000 + i, dtype)
+        ca = torch.rand((T, n), device='cuda').to(dtype)
+        px = T * h * w
+        ops = 2 * px * n * n
+        nbytes = 3 * n * px * y.element_size()
+        plain = median_ms(lambda: naf_chw.naf_back_plain(y, s, ca, prep))
+        label = f'naf_back n={n} {h}x{w}{" b7" if b7 else ""}'
+        ms = median_ms(lambda: naf_chw.naf_back(y, s, ca, prep))
+        _line(label, ms, ops, nbytes, dtype, plain, None, '')
+        del y, s
+
+
+def bench_up(dtype, tiles):
+    size = torch.tensor([], dtype=dtype).element_size()
+    for i, (cin, cout, h, w) in enumerate(UP_SHAPES):
+        x = _randn((T, cin, h, w), 1100 + i, dtype)
+        with torch.inference_mode(False):  # a weight whose panel is kept
+            w11 = _randn((cout, cin, 1, 1), 1200 + i, dtype, cin ** -0.5)
+        skip = _randn((T, cout, 2 * h, 2 * w), 1300 + i, dtype)
+        ops = 2 * cin * cout * T * h * w
+        nbytes = (x.numel() + 2 * skip.numel()) * size
+        plain = median_ms(lambda: chw.up_skip_plain(x, w11, skip))
+        label = f'up_skip {cin}->{cout} {h}x{w}->{2 * h}x{2 * w}'
+        runs = [('', {})]
+        if tiles:
+            pick = chw.up_skip_tile(cin, cout, size)
+            runs = [(f'{th}x{tw}{"*" if (th, tw) == pick else ""}',
+                     dict(tile=(th, tw))) for th, tw in chw.UP_TILES
+                    if chw.up_skip_smem(cin, cout, size, th, tw)
+                    <= chw.SMEM_BYTES]
+        for tag, kw in runs:
+            ms = median_ms(lambda: chw.up_skip(x, w11, skip, **kw))
+            _line(label, ms, ops, nbytes, dtype, plain, None, tag)
+        del x, skip
+
+
+FAMILIES = (('cab', bench_cab), ('conv', bench_conv), ('naf', bench_naf),
+            ('back', bench_back), ('up', bench_up))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--tiles', action='store_true',
                     help='time the kernels at every tile that fits')
     ap.add_argument('--f32', action='store_true',
                     help='also time the float32 forms')
-    ap.add_argument('--only', choices=('cab', 'conv', 'naf'),
+    ap.add_argument('--only', choices=[name for name, _ in FAMILIES],
                     help='time one kernel family')
     args = ap.parse_args(argv)
     require_cuda('bench_conv')
@@ -215,8 +274,7 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         for dtype in (torch.bfloat16,) + ((torch.float32,) if args.f32
                                           else ()):
-            for name, bench in (('cab', bench_cab), ('conv', bench_conv),
-                                ('naf', bench_naf)):
+            for name, bench in FAMILIES:
                 if args.only in (None, name):
                     bench(dtype, args.tiles)
     return 0

@@ -288,6 +288,70 @@ def test_conv_tile_fits_shared_memory(cin, cout, k, stride):
                              itemsize) <= chw.SMEM_BYTES
 
 
+# (Cin, Cout) of every SkipUpSample the variants run: 36->24, 48->36 and
+# 80->80 (big), 18->14, 22->18 and 64->64 (small).
+UP_SHAPES = [(36, 24), (48, 36), (80, 80), (18, 14), (22, 18), (64, 64)]
+
+
+@pytest.mark.parametrize('itemsize', [2, 4])
+@pytest.mark.parametrize('cin,cout', UP_SHAPES)
+def test_up_panel_unpacks_to_the_rounded_weight(cin, cout, itemsize):
+    """up_skip's panel (csrc/up_skip.cu reads it as the B operand of its
+    one-tap product): rows are output channels padded to whole n8 tiles,
+    columns input channels, exactly the weight rounded to the activation
+    type; the padding rows and columns are zero; the block's tile fits."""
+    dt = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    rng = np.random.default_rng(cin + cout)
+    w11 = torch.from_numpy(rng.standard_normal((cout, cin, 1, 1)).astype(
+        np.float32))
+    panel = chw.up_panel(w11, dt)
+    np_, kp = chw.mma_layout(cin, cout, itemsize)
+    assert panel.shape == (1, np_, kp) and panel.dtype == dt
+    assert np_ % 8 == 0 and np_ >= cout and (kp * itemsize // 16) % 2 == 1
+    assert torch.equal(panel[0, :cout, :cin], w11[:, :, 0, 0].to(dt))
+    assert not panel[:, cout:].any() and not panel[:, :, cin:].any()
+    th, tw = chw.up_skip_tile(cin, cout, itemsize)
+    smem = chw.up_skip_smem(cin, cout, itemsize, th, tw)
+    assert smem <= chw.SMEM_BYTES and tw % 4 == 0
+    if itemsize == 2:  # two blocks an SM
+        assert smem <= chw.TWO_PER_SM
+
+
+def test_up_panel_is_packed_once_per_weight():
+    """The panel is kept with the weight: a second call returns it as it
+    is, for another type a new one; writing the weight in place (as
+    ``load_state_dict`` does) packs it anew."""
+    mod = layers.SkipUpSample(24, 16)
+    w = mod.up[1].weight
+    first = chw.up_panel(w, torch.bfloat16)
+    assert chw.up_panel(w, torch.bfloat16) is first
+    f32 = chw.up_panel(w, torch.float32)
+    assert f32.dtype == torch.float32
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = chw.up_panel(w, torch.float32)
+    assert again is not f32
+    assert torch.equal(again[0, :16, :24], w[:, :, 0, 0].detach())
+    with torch.inference_mode():
+        w_inf = torch.ones(16, 24, 1, 1)
+    assert torch.equal(chw.up_panel(w_inf, torch.float32)[0, :16, :24],
+                       w_inf[:, :, 0, 0])
+
+
+def test_up_skip_takes_the_float32_parameter():
+    """The fused SkipUpSample hands up_skip its float32 parameter, rounded
+    to the activation type inside: the same result as the weight cast by
+    the caller, on the plain path here."""
+    mod = layers.SkipUpSample(12, 8, fused=True)
+    seeded(mod, 3)
+    x = torch.from_numpy(rand((2, 12, 5, 7), 15)).to(torch.bfloat16)
+    skip = torch.from_numpy(rand((2, 8, 10, 14), 16)).to(torch.bfloat16)
+    w = mod.up[1].weight.detach()
+    with torch.no_grad():
+        got = mod(x, skip)
+    assert torch.equal(got, chw.up_skip_plain(x, w.to(torch.bfloat16), skip))
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / 'build')
     monkeypatch.setenv('PATH', str(tmp_path))

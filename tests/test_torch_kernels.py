@@ -460,6 +460,80 @@ def test_naf_gate_and_rep_are_deterministic(cuda, dtype, n, depthwise):
     assert torch.equal(s1, s2) and torch.equal(ss1, ss2)
 
 
+def back_inputs(cuda, dtype, n, b7, h, w, seed):
+    """naf_back's inputs: a CAB1's prep (with ``b7``, the denoise variants'
+    biased projection), y, s and a CALayer scale ca in (0, 1)."""
+    p = naf_params(n, False, b7, cuda, seed=seed)
+    prep = naf_chw.prep_naf(p, '', dtype, mid_ca=b7, last_bias=b7)
+    g = torch.Generator().manual_seed(seed)
+    y = randn(g, 3, n, h, w).to(cuda, dtype)
+    s = randn(g, 3, n, h, w).to(cuda, dtype)
+    ca = torch.rand(3, n, generator=g).to(cuda, dtype)
+    return prep, y, s, ca
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n,b7', [(48, True), (64, True), (64, False),
+                                  (80, False), (80, True)])
+# 24 x 20: whole 16-byte chunks (cp.async) and a ragged last tile; 19 x 37:
+# a plane off the 16-byte grid (element loads)
+@pytest.mark.parametrize('h,w', [(24, 20), (19, 37)])
+def test_naf_back_ragged_planes_match_plain(cuda, dtype, n, b7, h, w):
+    """The tensor-core naf_back on planes that are not a multiple of its
+    128-pixel tile; in place over y it gives the fresh output's bits."""
+    prep, y, s, ca = back_inputs(cuda, dtype, n, b7, h, w, seed=n + h)
+    want = naf_chw.naf_back_plain(y, s, ca, prep)
+    assert (h * w) % naf_chw.BACK_PX
+    chw.reset_launches()
+    got = naf_chw.naf_back(y, s, ca, prep)
+    assert norm_err(got, want) < TOL[dtype]
+    yc = y.clone()
+    out = naf_chw.naf_back(yc, s, ca, prep, inplace=True)
+    assert out.data_ptr() == yc.data_ptr() and torch.equal(out, got)
+    assert chw.LAUNCHES['naf_back'] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout', [(36, 24), (48, 36), (80, 80),
+                                      (18, 14), (22, 18), (64, 64)])
+# odd sizes (element blend items), then 2w = 80: 16-byte rows
+@pytest.mark.parametrize('h,w', [(13, 21), (9, 40)])
+def test_up_skip_every_tile_matches_plain(cuda, dtype, cin, cout, h, w):
+    """The tensor-core up_skip at every SkipUpSample width, each tile that
+    fits; Cout = 14 and 18 leave padded n8 columns.  The float32 parameter,
+    rounded inside, gives the bits of the weight cast by the caller."""
+    g = torch.Generator().manual_seed(cin * h + cout)
+    x = randn(g, 2, cin, h, w).to(cuda, dtype)
+    w32 = randn(g, cout, cin, 1, 1, scale=cin ** -0.5).to(cuda)
+    w11 = w32.to(dtype)
+    skip = randn(g, 2, cout, 2 * h, 2 * w).to(cuda, dtype)
+    want = chw.up_skip_plain(x, w11, skip)
+    size = x.element_size()
+    tiles = [t for t in chw.UP_TILES
+             if chw.up_skip_smem(cin, cout, size, *t) <= chw.SMEM_BYTES]
+    assert tiles and chw.up_skip_tile(cin, cout, size) in tiles
+    for tile in tiles:
+        got = chw.up_skip(x, w11, skip, tile=tile)
+        assert norm_err(got, want) < TOL[dtype], tile
+    assert torch.equal(chw.up_skip(x, w32, skip), chw.up_skip(x, w11, skip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_naf_back_and_up_skip_are_deterministic(cuda, dtype):
+    """Two launches on the same input give the same bits."""
+    prep, y, s, ca = back_inputs(cuda, dtype, 80, True, 29, 48, seed=5)
+    assert torch.equal(naf_chw.naf_back(y, s, ca, prep),
+                       naf_chw.naf_back(y, s, ca, prep))
+    g = torch.Generator().manual_seed(6)
+    x = randn(g, 3, 80, 23, 40).to(cuda, dtype)
+    w11 = randn(g, 80, 80, 1, 1, scale=80 ** -0.5).to(cuda, dtype)
+    skip = randn(g, 3, 80, 46, 80).to(cuda, dtype)
+    assert torch.equal(chw.up_skip(x, w11, skip), chw.up_skip(x, w11, skip))
+
+
 @pytest.mark.cuda
 def test_naf_kernels_reject_what_they_do_not_take(cuda):
     p = naf_params(48, True, False, cuda, seed=0)

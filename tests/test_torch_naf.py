@@ -339,6 +339,44 @@ def test_packed_group_panels_rebuild_the_grouped_conv(n, itemsize):
     assert prep['rep_p'] is None  # depthwise: the CUDA cores read rep
 
 
+@pytest.mark.parametrize('n,itemsize', WIDTHS)
+@pytest.mark.parametrize('last_bias', [False, True])
+def test_w7_panel_unpacks_to_the_rounded_projection(n, itemsize, last_bias):
+    """naf_back's panel ``w7_p`` (csrc/naf_back.cu reads it as the B operand
+    of its one-tap product): row o holds output channel o's weights over
+    the input channels, exactly the projection rounded to the compute type
+    (``w7`` is input-major); the padding columns are zero and a row is an
+    odd number of 16-byte units.  b7 does not enter the panel."""
+    mod, _, _, _ = naf_module(n, False, False, last_bias, seed=3 * n)
+    dt = DTYPE[itemsize]
+    params = dict(mod.named_parameters())
+    prep = naf_chw.prep_naf(params, '', dt, last_bias=last_bias)
+    panel = prep['w7_p']
+    np_, kp = chw.mma_layout(n, n, itemsize)
+    assert np_ == n and panel.shape == (1, n, kp) and panel.dtype == dt
+    assert (kp * itemsize // 16) % 2 == 1 and not panel[..., n:].any()
+    want = params['body.7.weight'].detach().flatten(1).to(dt)
+    assert torch.equal(panel[0, :, :n], want)
+    assert torch.equal(panel[0, :, :n].float(), prep['w7'].t())
+    assert (prep['b7'] is not None) == last_bias
+
+
+def test_back_fits_shared_memory():
+    """naf_back's block at every width, as csrc/naf_back.cu lays it out: two
+    stages of s and y [n][cm_pitch(128)] and ca, then the panel; in
+    bfloat16 two blocks share an SM."""
+    for n in (32, 48, 64, 80):
+        for itemsize in (2, 4):
+            smem = naf_chw.naf_back_smem(n, itemsize)
+            assert smem <= chw.SMEM_BYTES
+            if itemsize == 2:
+                assert smem <= chw.TWO_PER_SM
+    assert chw.cm_pitch(128) == 136 and chw.cm_pitch(612) == 632
+    assert naf_chw.naf_back_smem(80, 2) == (
+        2 * (2 * 80 * 136 + 80) + 80 * 88) * 2 == 101440
+    assert naf_chw.naf_back_smem(80, 4) == 201600
+
+
 def test_expand_layouts_match_the_dispatch_table():
     """``mma_layout(..., expand=True)`` takes exactly the expand rows of
     ``dispatch_np<true>`` in csrc/conv_core.cuh (two warp columns of an
