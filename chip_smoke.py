@@ -10,9 +10,9 @@ Phases, each of which must pass:
 2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
    nine model kernels and the four probe kernels) into one library (one
    nvcc per source, in parallel), then count the tensor-core (``HMMA``)
-   instructions in the SASS of the ``cab_front``, ``conv``, ``naf_gate``,
-   ``naf_rep``, ``naf_back`` and ``up_skip`` kernels, both types
-   (``cuobjdump -sass``): every instantiation must have some.
+   instructions in the SASS of the ``cab_front``, ``conv``, ``conv_cat``,
+   ``naf_gate``, ``naf_rep``, ``naf_back`` and ``up_skip`` kernels, both
+   types (``cuobjdump -sass``): every instantiation must have some.
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
@@ -197,8 +197,9 @@ def device_phase():
 # The kernel templates that run on the tensor cores (mma.sync), by name in
 # the SASS: every instantiation must hold HMMA instructions.
 MMA_KERNELS = ('cab_front_mma_kernel', 'conv_mma_kernel',
-               'naf_gate_mma_kernel', 'naf_rep_mma_kernel',
-               'naf_back_mma_kernel', 'up_skip_mma_kernel')
+               'conv_cat_mma_kernel', 'naf_gate_mma_kernel',
+               'naf_rep_mma_kernel', 'naf_back_mma_kernel',
+               'up_skip_mma_kernel')
 
 
 def _hmma_counts(lib):
@@ -401,16 +402,19 @@ def _cases():
                       f'{" bias" if bias else ""}{" prelu" if pre else ""}'
                       f' {h}x{w}', cv))
 
-    # -- row 5: conv_cat (deblur rconcat and conv_hr0, denoise rconcat);
+    # -- row 5: conv_cat (deblur rconcat and conv_hr0, denoise rconcat; the
+    # small variants' widths: deblur_small rconcat, denoise_small conv_hr0);
     # the library call is F.conv2d on the input already concatenated (the
     # cat not timed), and none with the PReLU
-    for n_in, bias, pre, h, w in ((3, True, False, H, W),
-                                  (2, True, False, H, W),
-                                  (3, False, True, DN_H, DN_W)):
-        def cat(rng, dt, n_in=n_in, bias=bias, pre=pre, h=h, w=w):
-            xs = [arr(rng, (T_CHECK, 24, h, w), dt) for _ in range(n_in)]
-            wt = wgt(rng, (24, 24 * n_in, 3, 3), dt)
-            b = f32(rng, (24,), 0.01) if bias else None
+    for n_in, c, bias, pre, h, w in ((3, 24, True, False, H, W),
+                                     (2, 24, True, False, H, W),
+                                     (3, 24, False, True, DN_H, DN_W),
+                                     (3, 14, True, False, H, W),
+                                     (2, 14, True, False, DN_H, DN_W)):
+        def cat(rng, dt, n_in=n_in, c=c, bias=bias, pre=pre, h=h, w=w):
+            xs = [arr(rng, (T_CHECK, c, h, w), dt) for _ in range(n_in)]
+            wt = wgt(rng, (c, c * n_in, 3, 3), dt)
+            b = f32(rng, (c,), 0.01) if bias else None
             a = torch.full((1,), 0.25, device='cuda') if pre else None
             lib = None
             if not pre:
@@ -420,8 +424,8 @@ def _cases():
             return Case(lambda: chw.conv_concat(xs, wt, b, a),
                         lambda: chw.conv_concat_plain(xs, wt, b, a),
                         [*xs, wt, b, a],
-                        2 * 9 * 24 * n_in * 24 * T_CHECK * h * w, lib)
-        cases.append(('conv_cat', f'{n_in}x24->24'
+                        2 * 9 * c * n_in * c * T_CHECK * h * w, lib)
+        cases.append(('conv_cat', f'{n_in}x{c}->{c}'
                       f'{" bias" if bias else ""}{" prelu" if pre else ""}'
                       f' {h}x{w}', cat))
 

@@ -6,9 +6,9 @@
 // b_hi summed on m16n8k8 (and m16n8k4) TF32 products, which keeps float32's
 // accuracy where one TF32 product keeps about three decimal digits.  It is
 // a device building block, not a kernel: cab_front.cu, conv.cu,
-// naf_gate.cu and naf_rep.cu stage their tiles and call conv_tile (and
-// naf_rep.cu's grouped 5x5, group_tile); naf_back.cu and up_skip.cu run
-// their 1x1 products on channel-major tiles with cm_tile.
+// conv_cat.cu, naf_gate.cu and naf_rep.cu stage their tiles and call
+// conv_tile (and naf_rep.cu's grouped 5x5, group_tile); naf_back.cu and
+// up_skip.cu run their 1x1 products on channel-major tiles with cm_tile.
 //
 // The product.  Output pixels are the M rows, output channels the N
 // columns, and (tap, input channel) the K depth: acc[p][co] = sum over taps
@@ -594,10 +594,9 @@ struct FrameSums {
 // base(p) + off(tap), off(ky * ksz + kx) = ky * sw + kx.  wg: the packed
 // weights [taps][Np][KP] in device memory; wbuf: weight_smem(taps, Np, KP)
 // bytes of shared memory; with kLoaded, wbuf already holds the whole
-// panels (a persistent block's, loaded once; wg unused).  Calls epi(p, co,
-// v0, v1)
-// with the float32 sums of channels co and co + 1 (co even, co + 1 < Np)
-// for every p < M.  With
+// panels, whatever their size (a persistent block's, loaded once; wg
+// unused).  Calls epi(p, co, v0, v1) with the float32 sums of channels co
+// and co + 1 (co even, co + 1 < Np) for every p < M.  With
 // kPair, the packed rows come in pairs of n8 tiles (tile 2b holds a gate's
 // first factors, tile 2b + 1 their partners: ops/naf_chw.py, gate_rows) and
 // epi(p, o, a0, a1, b0, b1) takes both tiles' sums at once, o = 8 b + the
@@ -619,7 +618,7 @@ __device__ __forceinline__ void conv_tile(const T* src, int sp, int Kc,
   const int wm = warp % WM, wn = warp / WM;
   const int taps = ksz * ksz;
   const int panel = Np * KP;
-  const bool whole = resident<T>(taps, Np, KP);
+  const bool whole = kLoaded || resident<T>(taps, Np, KP);
   const int frags = (M + 15) / 16;
   const int per_pass = WM * MFW;
   const int passes = (frags + per_pass - 1) / per_pass;

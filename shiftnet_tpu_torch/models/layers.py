@@ -72,10 +72,11 @@ class Conv2d(nn.Module):
         dt = xs[0].dtype
         b = None if self.bias is None else self.bias.to(dt).float()
         a = None if alpha is None else alpha.to(dt).float()
-        w = self.weight.to(dt)
-        if virtual:
-            return chw.conv_concat(xs, w, b, a)
-        return chw.conv(torch.cat(xs, dim=1), w, b, a, self.stride)
+        if virtual:  # conv_concat rounds the weight (the kernel's panels
+            # are packed once per weight)
+            return chw.conv_concat(xs, self.weight, b, a)
+        return chw.conv(torch.cat(xs, dim=1), self.weight.to(dt), b, a,
+                        self.stride)
 
 
 class PReLU(nn.Module):

@@ -45,7 +45,7 @@ SIGNATURES = {
     'shiftnet_naf_back': [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           ctypes.c_longlong, _I, _P],
     'shiftnet_conv_cat': [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _P],
+                          _I, _I, _I, _I, _I, _P],
     'shiftnet_mm_loop': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     'shiftnet_block_copy': [_P, _P, _LLP, _I, _I, _LL, _LL, _P],
     'shiftnet_block_copy_staged': [_P, _P, _LLP, _I, _I, _LL, _LL, _I,

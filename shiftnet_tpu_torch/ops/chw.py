@@ -138,6 +138,23 @@ def pack_taps(w: torch.Tensor, np_: int, kp: int) -> torch.Tensor:
     return F.pad(wt, (0, kp - c_in, 0, np_ - c_out)).contiguous()
 
 
+def _kept_panel(w: torch.Tensor, dtype: torch.dtype, attr: str,
+                pack) -> torch.Tensor:
+    """``pack`` of w rounded to ``dtype``, packed once per weight: the
+    result is kept on w (attribute ``attr``) and reused while w's storage,
+    version, type and device and ``dtype`` stay the same (an in-place write
+    such as ``load_state_dict`` bumps the version).  An inference tensor,
+    whose version is not tracked, is packed anew at every call."""
+    if w.is_inference():
+        return pack(w.to(dtype))
+    key = (w.data_ptr(), w._version, w.dtype, w.device, dtype)
+    hit = getattr(w, attr, None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack(w.detach().to(dtype)))
+        setattr(w, attr, hit)
+    return hit[1]
+
+
 def cm_pitch(m: int) -> int:
     """Row length (elements) of a channel-major tile of m pixels (naf_back,
     up_skip): m rounded up to 16 plus 8 (``cm_pitch`` in conv_core.cuh)."""
@@ -354,6 +371,56 @@ def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
 
 # -- I: conv_cat ---------------------------------------------------------------
 
+def cat_layout(n_in: int, c_in: int, c_out: int,
+               itemsize: int) -> tuple[int, int]:
+    """(Np, KP) of conv_cat's packed weights (csrc/conv_cat.cu): the output
+    rows of ``mma_layout``, and a panel row as long as the pixel-major
+    tile's, ``n_in`` inputs of ``pad_chunk(c_in)`` channels each."""
+    return (mma_layout(c_in, c_out, itemsize)[0],
+            mma_pitch(n_in * pad_chunk(c_in, itemsize), itemsize))
+
+
+def pack_cat_taps(w: torch.Tensor, n_in: int, np_: int,
+                  kp: int) -> torch.Tensor:
+    """(Cout, n_in * Cin, 3, 3) -> (9, np_, kp): ``pack_taps`` with input
+    s's channels at columns s * pad_chunk(Cin) onwards and zeros between,
+    where csrc/conv_cat.cu stages that input in its tile; in w's type."""
+    c_in = w.shape[1] // n_in
+    pad = pad_chunk(c_in, w.element_size()) - c_in
+    parts = [F.pad(v, (0, 0, 0, 0, 0, pad)) for v in w.chunk(n_in, dim=1)]
+    return pack_taps(torch.cat(parts, dim=1), np_, kp)
+
+
+def conv_cat_smem(n_in: int, c_in: int, c_out: int, itemsize: int, th: int,
+                  tw: int) -> int:
+    """Shared memory of one ``conv_cat`` block (csrc/conv_cat.cu,
+    conv_cat_smem): the weight panels (whole, or two streamed taps) and the
+    pixel-major tile of the inputs with a 1-pixel halo."""
+    np_, kp = cat_layout(n_in, c_in, c_out, itemsize)
+    return (mma_weight_smem(9, np_, kp, itemsize)
+            + (th + 2) * (tw + 2) * kp * itemsize)
+
+
+def conv_cat_tile(n_in: int, c_in: int, c_out: int,
+                  itemsize: int) -> tuple[int, int]:
+    """Output tile (TH, TW) of ``conv_cat`` (``_pick_tile`` over
+    ``CONV_TILES``)."""
+    return _pick_tile(CONV_TILES, lambda th, tw: conv_cat_smem(
+        n_in, c_in, c_out, itemsize, th, tw), itemsize)
+
+
+def cat_panel(w: torch.Tensor, n_in: int, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor-core panels of a conv over an ``n_in``-input concat, w
+    (Cout, n_in * Cin, 3, 3): (9, Np, KP) in ``dtype`` (``pack_cat_taps`` at
+    ``cat_layout``), the weight rounded to dtype, packed once per weight
+    (``_kept_panel``)."""
+    c_out, c_all = w.shape[:2]
+    layout = cat_layout(n_in, c_all // n_in, c_out,
+                        torch.empty((), dtype=dtype).element_size())
+    return _kept_panel(w, dtype, f'_cat_panel{n_in}',
+                       lambda v: pack_cat_taps(v, n_in, *layout))
+
+
 def conv_concat_plain(xs, w, bias, alpha):
     ws = w.float().chunk(len(xs), dim=1)
     y = sum(F.conv2d(x.float(), wi, padding=1) for x, wi in zip(xs, ws))
@@ -365,8 +432,8 @@ def conv_concat_plain(xs, w, bias, alpha):
 
 
 def conv_concat(xs: list[torch.Tensor], w: torch.Tensor,
-                bias: torch.Tensor | None,
-                alpha: torch.Tensor | None) -> torch.Tensor:
+                bias: torch.Tensor | None, alpha: torch.Tensor | None, *,
+                tile: tuple[int, int] | None = None) -> torch.Tensor:
     """conv3x3(cat(xs, dim=1), w) + bias, then PReLU, without the concat:
     the sum of per-input convs, accumulated in float32, with the float32
     bias and slope applied before the single cast
@@ -374,34 +441,48 @@ def conv_concat(xs: list[torch.Tensor], w: torch.Tensor,
 
     xs: 2 or 3 tensors (T, Cin, H, W) of one shape and type; w: the
     (Cout, n_in * Cin, 3, 3) weight of the conv over the concat, in that
-    type; bias: (Cout,) float32."""
-    if not _on_cuda(xs[0]):
-        return conv_concat_plain(xs, w, bias, alpha)
+    type or float32 (the parameter itself, rounded to that type; the kernel
+    reads its panels, ``cat_panel``, packed once); bias: (Cout,) float32.
+    ``tile``: the kernel's output tile, else ``conv_cat_tile``'s."""
     x = xs[0]
-    if len(xs) not in (2, 3):
-        raise ValueError(f'conv_cat: {len(xs)} inputs; takes 2 or 3')
-    if any(v.dtype != x.dtype for v in (*xs, w)):
-        raise ValueError('conv_cat: inputs and weight must share one type')
+    if not _on_cuda(x):
+        return conv_concat_plain(xs, w.to(x.dtype), bias, alpha)
+    n_in = len(xs)
+    if n_in not in (2, 3):
+        raise ValueError(f'conv_cat: {n_in} inputs; takes 2 or 3')
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f'conv_cat: dtype {x.dtype} not supported')
+    if (any(v.dtype != x.dtype for v in xs)
+            or w.dtype not in (x.dtype, torch.float32)):
+        raise ValueError('conv_cat: inputs must share one type, and the '
+                         'weight be in it or float32')
     t, cin, h, wd = x.shape
     cout = w.shape[0]
     if (any(v.shape != x.shape for v in xs)
-            or w.shape != (cout, len(xs) * cin, 3, 3)):
+            or w.shape != (cout, n_in * cin, 3, 3)):
         raise ValueError(f'conv_cat: inputs {[tuple(v.shape) for v in xs]}, '
                          f'weight {tuple(w.shape)}: needs one input shape and '
                          'a 3x3 weight over their concat')
     if bias is not None and bias.shape != (cout,):
         raise ValueError(f'conv_cat: bias {tuple(bias.shape)} for Cout={cout}')
-    code = _check('conv_cat', x, *xs[1:], w, f32=(bias, alpha))
+    same, f32 = ((w,), ()) if w.dtype == x.dtype else ((), (w,))
+    code = _check('conv_cat', x, *xs[1:], *same, f32=(bias, alpha, *f32))
+    size = x.element_size()
+    np_, kp = cat_layout(n_in, cin, cout, size)
+    th, tw = tile or conv_cat_tile(n_in, cin, cout, size)
+    if conv_cat_smem(n_in, cin, cout, size, th, tw) > SMEM_BYTES:
+        raise ValueError(f'conv_cat: tile {th}x{tw} does not fit in shared '
+                         'memory')
+    wp = cat_panel(w, n_in, x.dtype)
     out = torch.empty((t, cout, h, wd), device=x.device, dtype=x.dtype)
-    ptrs = [v.data_ptr() for v in xs] + [None] * (3 - len(xs))
+    ptrs = [v.data_ptr() for v in xs] + [None] * (3 - n_in)
     lib = _build.library()
     _build.check(lib.shiftnet_conv_cat(
-        code, *ptrs, len(xs), w.data_ptr(),
+        code, *ptrs, n_in, wp.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if alpha is None else alpha.data_ptr(),
-        out.data_ptr(), t, cin, cout, h, wd, _stream()), 'conv_cat')
+        out.data_ptr(), t, cin, cout, h, wd, np_, kp, th, tw, _stream()),
+        'conv_cat')
     LAUNCHES['conv_cat'] += 1
     return out
 
@@ -436,22 +517,12 @@ def up_skip_tile(c_in: int, c_out: int, itemsize: int) -> tuple[int, int]:
 def up_panel(w11: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The tensor-core panel of a SkipUpSample's 1x1 weight (Cout, Cin, 1,
     1): (1, Np, KP) in ``dtype`` (``pack_taps`` at ``mma_layout``), the
-    weight rounded to dtype.  Packed once per weight: the panel is kept on
-    the weight tensor and reused while the weight's storage, version, type
-    and device and the panel's type stay the same (an in-place write such
-    as ``load_state_dict`` bumps the version).  An inference tensor, whose
-    version is not tracked, is packed anew at every call."""
+    weight rounded to dtype, packed once per weight (``_kept_panel``)."""
     c_out, c_in = w11.shape[:2]
-    np_, kp = mma_layout(c_in, c_out, torch.empty((), dtype=dtype
-                                                  ).element_size())
-    if w11.is_inference():
-        return pack_taps(w11.to(dtype), np_, kp)
-    key = (w11.data_ptr(), w11._version, w11.dtype, w11.device, dtype)
-    hit = getattr(w11, '_up_panel', None)
-    if hit is None or hit[0] != key:
-        hit = (key, pack_taps(w11.detach().to(dtype), np_, kp))
-        w11._up_panel = hit
-    return hit[1]
+    layout = mma_layout(c_in, c_out, torch.empty((), dtype=dtype
+                                                 ).element_size())
+    return _kept_panel(w11, dtype, '_up_panel',
+                       lambda v: pack_taps(v, *layout))
 
 
 def up_skip_plain(x, w11, skip):

@@ -174,9 +174,6 @@ def shift_round(x: torch.Tensor, number: int, *, reverse: bool,
     add_c = 8 * number
     if number < 1 or add_c > c:
         raise ValueError(f'shift_round: number {number} for C={c}')
-    if t * (c + add_c) > 65535:
-        raise ValueError(f'shift_round: T*(C+add_c)={t * (c + add_c)} '
-                         'exceeds the grid')
     y = torch.empty_like(x)
     hw = torch.empty((t, add_c, h, w), device=x.device, dtype=x.dtype)
     lib = _build.library()

@@ -1,6 +1,7 @@
-"""Times of the tensor-core kernels (``cab_front``, ``conv``, ``naf_gate``,
-``naf_rep``, ``naf_back``, ``up_skip``) at the main path's shapes, beside
-their plain versions, cuDNN and their bounds.
+"""Times of the tensor-core kernels (``cab_front``, ``conv``, ``conv_cat``,
+``naf_gate``, ``naf_rep``, ``naf_back``, ``up_skip``) and of ``shift_round``
+at the main path's shapes, beside their plain versions, cuDNN (or a direct
+copy) and their bounds.
 
   python -m shiftnet_tpu_torch.tools.bench_conv [--tiles] [--f32] [--only K]
 
@@ -14,11 +15,16 @@ type's peak.  ``--tiles`` also times the kernels at every output
 tile of ``CAB_TILES`` / ``CONV_TILES`` / ``naf_chw.TILES`` /
 ``UP_TILES`` that fits, the default pick marked ``*`` (naf_back has one
 tile); ``--f32`` adds the float32 forms (with ``--tiles``, at every tile
-too); ``--only`` times one kernel family (``cab``, ``conv``, ``naf``
-(naf_gate and naf_rep), ``back`` (naf_back) or ``up`` (up_skip)).  The
-naf blocks' weights are seeded ``init_state`` weights of a CAB2 / CAB1,
-through ``prep_naf``; up_skip's weight is seeded in the activation type
-and its panel packed once, as the model's is, before the timed runs.
+too); ``--only`` times one kernel family (``cab``, ``conv``, ``cat``
+(conv_cat), ``naf`` (naf_gate and naf_rep), ``back`` (naf_back), ``up``
+(up_skip) or ``shift`` (shift_round)).  The naf blocks' weights are seeded
+``init_state`` weights of a CAB2 / CAB1, through ``prep_naf``; up_skip's
+and conv_cat's weights are seeded in the activation type and their panels
+packed once, as the model's are, before the timed runs.  conv_cat's line
+adds ``conv`` over the concat (the cat not timed); shift_round's library
+column is a direct copy of the same bytes (``Tensor.copy_`` of x into y
+and of the moved channels into hw), and it computes nothing, so its rate
+reads 0.
 
 The script reads only the ops' public functions, so it also times an
 older checkout of the port: ``PYTHONPATH=<checkout> python
@@ -76,6 +82,19 @@ REP_SHAPES = ((80, False, False, H // 2, W // 2),
 BACK_SHAPES = ((80, False, H // 2, W // 2), (80, True, H // 2, W // 2),
                (80, False, H // 4, W // 4), (80, False, H // 8, W // 8),
                (64, False, H // 2, W // 2))
+# conv_cat: (n_in, C, bias, prelu, h, w), C -> C over an n_in-input concat:
+# deblur rconcat and conv_hr0, denoise rconcat, deblur_small rconcat,
+# denoise_small conv_hr0 (chip_smoke.py's shapes).
+CAT_SHAPES = ((3, 24, True, False, H, W), (2, 24, True, False, H, W),
+              (3, 24, False, True, 480, 848), (3, 14, True, False, H, W),
+              (2, 14, True, False, 480, 848))
+# shift_round: (C, number, reverse, patch, h, w): the big variants' three
+# Encoder2 levels, then the small variants' width.
+SHIFT_SHAPES = ((80, 5, False, True, H // 2, W // 2),
+                (80, 5, True, True, H // 2, W // 2),
+                (80, 5, False, True, H // 4, W // 4),
+                (80, 5, False, True, H // 8, W // 8),
+                (64, 4, False, False, H // 2, W // 2))
 # up_skip: (cin, cout, h, w) at low resolution: the TFR U-Nets' up21 and
 # up32 and Encoder2's up21, big then small.
 UP_SHAPES = ((36, 24, H // 2, W // 2), (48, 36, H // 4, W // 4),
@@ -88,12 +107,12 @@ def _randn(shape, seed, dtype, scale=1.0):
     return (scale * torch.randn(shape, generator=g, device='cuda')).to(dtype)
 
 
-def _line(label, ms, ops, nbytes, dtype, plain, lib, tag):
+def _line(label, ms, ops, nbytes, dtype, plain, lib, tag, extra=''):
     bound = max(1e3 * nbytes / HBM, 1e3 * ops / PEAK[dtype])
     print(f'{label:40s} {str(dtype)[6:]:8s} {tag:7s} {ms:8.3f} ms '
           f'{ops / ms / 1e9:7.1f} TF/s | plain {plain:7.3f} | library '
           f'{"none" if lib is None else f"{lib:.3f}"} | bound {bound:.3f} '
-          f'ms', flush=True)
+          f'ms{extra}', flush=True)
 
 
 def bench_cab(dtype, tiles):
@@ -148,6 +167,62 @@ def bench_conv(dtype, tiles):
             ms = median_ms(lambda: chw.conv(x, wt, b, a, st, **kw))
             _line(label, ms, ops, nbytes, dtype, plain, lib, tag)
         del x
+
+
+def bench_cat(dtype, tiles):
+    for i, (n_in, c, bias, pre, h, w) in enumerate(CAT_SHAPES):
+        xs = [_randn((T, c, h, w), 1400 + 3 * i + s, dtype)
+              for s in range(n_in)]
+        with torch.inference_mode(False):  # a weight whose panel is kept
+            wt = _randn((c, n_in * c, 3, 3), 1500 + i, dtype,
+                        (9 * n_in * c) ** -0.5)
+        b = _randn((c,), 1600 + i, torch.float32, 0.01) if bias else None
+        a = torch.full((1,), 0.25, device='cuda') if pre else None
+        xcat = torch.cat(xs, 1)
+        ops = 2 * 9 * n_in * c * c * T * h * w
+        nbytes = (n_in + 1) * c * T * h * w * xcat.element_size()
+        plain = median_ms(lambda: chw.conv_concat_plain(xs, wt, b, a))
+        lib = None
+        if not pre:
+            bl = None if b is None else b.to(dtype)
+            lib = median_ms(lambda: F.conv2d(xcat, wt, bl, 1, 1))
+        on_cat = median_ms(lambda: chw.conv(xcat, wt, b, a, 1))
+        label = (f'conv_cat {n_in}x{c}->{c}{" bias" if bias else ""}'
+                 f'{" prelu" if pre else ""} {h}x{w}')
+        runs = [('', {})]
+        if tiles:
+            size = xcat.element_size()
+            pick = chw.conv_cat_tile(n_in, c, c, size)
+            runs = [(f'{th}x{tw}{"*" if (th, tw) == pick else ""}',
+                     dict(tile=(th, tw))) for th, tw in chw.CONV_TILES
+                    if chw.conv_cat_smem(n_in, c, c, size, th, tw)
+                    <= chw.SMEM_BYTES]
+        for tag, kw in runs:
+            ms = median_ms(lambda: chw.conv_concat(xs, wt, b, a, **kw))
+            _line(label, ms, ops, nbytes, dtype, plain, lib, tag,
+                  f' | conv on the concat {on_cat:.3f}')
+        del xs, xcat
+
+
+def bench_shift(dtype, tiles):
+    for i, (c, number, reverse, patch, h, w) in enumerate(SHIFT_SHAPES):
+        x = _randn((T, c, h, w), 1700 + i, dtype)
+        add_c = 8 * number
+        y, hw = torch.empty_like(x), x.new_empty((T, add_c, h, w))
+        kw = dict(reverse=reverse, boundary_patch=patch)
+        nbytes = (2 * c + add_c) * T * h * w * x.element_size()
+        plain = median_ms(lambda: naf_chw.shift_round_plain(x, number, **kw))
+
+        def copy():
+            y.copy_(x)
+            hw.copy_(x[:, :add_c])
+        lib = median_ms(copy)
+        ms = median_ms(lambda: naf_chw.shift_round(x, number, **kw))
+        label = (f'shift_round C={c} n={number} '
+                 f'{"reverse" if reverse else "forward"}'
+                 f'{" patch" if patch else ""} {h}x{w}')
+        _line(label, ms, 0, nbytes, dtype, plain, lib, '')
+        del x, y, hw
 
 
 def _naf_prep(n, cab2, depthwise, dtype, seed):
@@ -253,8 +328,9 @@ def bench_up(dtype, tiles):
         del x, skip
 
 
-FAMILIES = (('cab', bench_cab), ('conv', bench_conv), ('naf', bench_naf),
-            ('back', bench_back), ('up', bench_up))
+FAMILIES = (('cab', bench_cab), ('conv', bench_conv), ('cat', bench_cat),
+            ('naf', bench_naf), ('back', bench_back), ('up', bench_up),
+            ('shift', bench_shift))
 
 
 def main(argv=None) -> int:

@@ -1,14 +1,16 @@
-"""Cycles per phase of the ``naf_gate`` and ``naf_rep`` kernels' blocks.
+"""Cycles per phase of the ``naf_gate``, ``naf_rep`` and ``conv_cat``
+kernels' blocks.
 
   python -m shiftnet_tpu_torch.tools.phase_naf [--f32]
 
 Builds the kernels with ``-DSHIFTNET_PHASES`` (a library of its own: the
 build is keyed on the flags), in which thread 0 of each block adds the
 ``clock64()`` cycles between the kernels' phase barriers
-(``csrc/conv_core.cuh``, ``SHIFTNET_PHASE``), then runs each naf case of
-``tools/bench_conv.py`` at every output tile that fits and prints the mean
-cycles per tile and phase.  Each mark adds a barrier, so the phases sum to
-a little more than a plain build's time.  Needs a CUDA device.
+(``csrc/conv_core.cuh``, ``SHIFTNET_PHASE``), then runs each naf and
+conv_cat case of ``tools/bench_conv.py`` at every output tile that fits and
+prints the mean cycles per tile and phase.  Each mark adds a barrier, so
+the phases sum to a little more than a plain build's time.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import ctypes
 
 import torch
 
-from shiftnet_tpu_torch.ops import _build, naf_chw
+from shiftnet_tpu_torch.ops import _build, chw, naf_chw
 from shiftnet_tpu_torch.tools import bench_conv
 from shiftnet_tpu_torch.tools.timing import card, require_cuda
 
@@ -25,6 +27,7 @@ RUNS = 5
 GATE_PHASES = ('staging', 'hw2', 'LN', 'expand', 'RepConv2+gate',
                'stores+sums')
 REP_PHASES = ('staging', '5x5', 'expand+gate', 'stores+sums')
+CAT_PHASES = ('staging', 'products+epilogue')
 
 
 def _phases(lib, name: str, fn, jobs: int, labels) -> str:
@@ -91,6 +94,26 @@ def main(argv=None) -> int:
                           + _phases(lib, 'naf_rep', lambda: naf_chw.naf_rep(
                               g, cag, prep, tile=tile), jobs, REP_PHASES),
                           flush=True)
+            for i, (n_in, c, bias, pre, h, w) in enumerate(
+                    bench_conv.CAT_SHAPES):
+                xs = [bench_conv._randn((t, c, h, w), 1400 + 3 * i + s, dt)
+                      for s in range(n_in)]
+                with torch.inference_mode(False):  # its panels kept
+                    wt = bench_conv._randn((c, n_in * c, 3, 3), 1500 + i,
+                                           dt, (9 * n_in * c) ** -0.5)
+                b = torch.zeros(c, device='cuda') if bias else None
+                a = torch.full((1,), 0.25, device='cuda') if pre else None
+                for tile in chw.CONV_TILES:
+                    if chw.conv_cat_smem(n_in, c, c, size,
+                                         *tile) > chw.SMEM_BYTES:
+                        continue
+                    jobs = t * -(-h // tile[0]) * -(-w // tile[1])
+                    print(f'conv_cat {n_in}x{c}->{c} {h}x{w} {str(dt)[6:]} '
+                          f'{tile[0]}x{tile[1]}: '
+                          + _phases(lib, 'conv_cat',
+                                    lambda: chw.conv_concat(xs, wt, b, a,
+                                                            tile=tile),
+                                    jobs, CAT_PHASES), flush=True)
     return 0
 
 

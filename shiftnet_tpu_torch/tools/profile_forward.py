@@ -45,8 +45,7 @@ from shiftnet_tpu_torch.models import build_model, init_state
 OUR_KERNELS = ('cab_front', 'cab_back', 'conv', 'up_skip', 'shift_round',
                'naf_gate', 'naf_rep', 'naf_back', 'conv_cat')
 # A CUDA kernel's name -> the port kernel it belongs to (the tensor-core
-# kernels, cab_front, conv, naf_gate and naf_rep, launch <name>_mma_kernel,
-# the others <name>_kernel).
+# kernels launch <name>_mma_kernel, the others <name>_kernel).
 _PORT_NAME = re.compile(r'shiftnet::(\w+?)(?:_mma)?_kernel\b')
 
 

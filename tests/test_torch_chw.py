@@ -280,6 +280,63 @@ def test_packed_taps_rebuild_the_conv(cin, cout, k, stride, itemsize):
     assert norm_err(got[:, :cout].numpy(), want.numpy()) < TOL
 
 
+# (n_in, Cin, Cout) of every conv over a concat the variants run on conv_cat
+# (rconcat, conv_hr0; big and small widths), then the kernel tests' width.
+CAT_SHAPES = [(3, 24, 24), (2, 24, 24), (3, 14, 14), (2, 14, 14),
+              (3, 20, 13), (2, 20, 13)]
+
+
+@pytest.mark.parametrize('itemsize', [2, 4])
+@pytest.mark.parametrize('n_in,cin,cout', CAT_SHAPES)
+def test_packed_cat_taps_rebuild_the_concat_conv(n_in, cin, cout, itemsize):
+    """conv_cat's weight panels (``cat_panel``, at the bfloat16 and the
+    float32 panel widths): the conv rebuilt from them as a sum over taps of
+    shifted matmuls, over the inputs each zero-padded to its chunk of
+    columns and concatenated, equals ``conv_concat_plain`` with the weight
+    rounded to the panel type; the padding rows and columns (between the
+    inputs' channels too) are zero, a panel row is an odd number of 16-byte
+    units, and the panels are packed once per weight."""
+    dt = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    rng = np.random.default_rng(n_in * 100 + cin + cout)
+    xs = [torch.from_numpy(rng.standard_normal((2, cin, 9, 13)).astype(
+        np.float32)) for _ in range(n_in)]
+    w = torch.from_numpy((rng.standard_normal((cout, n_in * cin, 3, 3))
+                          / np.sqrt(9 * n_in * cin)).astype(np.float32))
+    packed = chw.cat_panel(w, n_in, dt)
+    assert chw.cat_panel(w, n_in, dt) is packed
+    np_, kp = chw.cat_layout(n_in, cin, cout, itemsize)
+    cp = chw.pad_chunk(cin, itemsize)
+    assert np_ >= cout and kp >= n_in * cp and (kp * itemsize // 16) % 2 == 1
+    assert packed.shape == (9, np_, kp) and packed.dtype == dt
+    assert packed.is_contiguous()
+    cols = torch.zeros(kp, dtype=torch.bool)
+    for s in range(n_in):
+        cols[s * cp:s * cp + cin] = True
+    assert not packed[:, cout:].any() and not packed[:, :, ~cols].any()
+    xp = torch.cat([F.pad(x, (1, 1, 1, 1, 0, cp - cin)) for x in xs], 1)
+    xp = F.pad(xp, (0, 0, 0, 0, 0, kp - n_in * cp))
+    got = torch.zeros(2, np_, 9, 13)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        got += torch.einsum('tchw,nc->tnhw', xp[:, :, ky:ky + 9, kx:kx + 13],
+                            packed[tap].float())
+    assert not got[:, cout:].any()
+    want = chw.conv_concat_plain(xs, w.to(dt).float(), None, None)
+    assert norm_err(got[:, :cout].numpy(), want.numpy()) < TOL
+
+
+@pytest.mark.parametrize('n_in,cin,cout', CAT_SHAPES)
+def test_conv_cat_tile_fits_shared_memory(n_in, cin, cout):
+    """conv_cat's tile and whole panels fit a block's shared memory; in
+    bfloat16 two blocks share an SM."""
+    for itemsize in (2, 4):
+        th, tw = chw.conv_cat_tile(n_in, cin, cout, itemsize)
+        smem = chw.conv_cat_smem(n_in, cin, cout, itemsize, th, tw)
+        assert smem <= chw.SMEM_BYTES
+        if itemsize == 2:
+            assert smem <= chw.TWO_PER_SM
+
+
 @pytest.mark.parametrize('cin,cout,k,stride', CONV_SHAPES)
 def test_conv_tile_fits_shared_memory(cin, cout, k, stride):
     for itemsize in (2, 4):

@@ -240,14 +240,19 @@ def test_conv_with_four_input_channels_matches_plain(cuda, dtype):
                                              (3, True, False),
                                              (3, False, True)])
 @pytest.mark.parametrize('h,w', [(19, 37), (33, 20)])  # ragged edge tiles
-def test_conv_cat_matches_plain(cuda, dtype, n_in, bias, prelu, h, w):
-    """rconcat (3 inputs, bias or PReLU) and conv_hr0 (2 inputs, bias);
-    Cin = 20 leaves a partial 8-channel chunk in each input."""
-    g = torch.Generator().manual_seed(n_in * h)
-    cin, cout = 20, 13
+@pytest.mark.parametrize('cin,cout', [(20, 13), (24, 24), (14, 14)])
+def test_conv_cat_matches_plain(cuda, dtype, n_in, bias, prelu, h, w, cin,
+                                cout):
+    """rconcat (3 inputs, bias or PReLU) and conv_hr0 (2 inputs, bias) at
+    the big (24) and small (14) widths; Cin = 20 leaves a partial 8-channel
+    chunk in each input, 14 one in bfloat16 and a padded one in float32.
+    The float32 parameter, rounded inside, gives the same bits as the
+    weight rounded by the caller."""
+    g = torch.Generator().manual_seed(n_in * h + cin)
     xs = [randn(g, 2, cin, h, w).to(cuda, dtype) for _ in range(n_in)]
-    wt = randn(g, cout, n_in * cin, 3, 3, scale=(9 * cin * n_in) ** -0.5).to(
-        cuda, dtype)
+    w32 = randn(g, cout, n_in * cin, 3, 3,
+                scale=(9 * cin * n_in) ** -0.5).to(cuda)
+    wt = w32.to(dtype)
     b = randn(g, cout, scale=0.1).to(cuda) if bias else None
     a = torch.tensor([0.3], device=cuda) if prelu else None
     chw.reset_launches()
@@ -256,9 +261,22 @@ def test_conv_cat_matches_plain(cuda, dtype, n_in, bias, prelu, h, w):
     want = chw.conv_concat_plain(xs, wt, b, a)
     assert got.shape == (2, cout, h, w) and got.dtype == dtype
     assert norm_err(got, want) < TOL[dtype]
+    assert torch.equal(chw.conv_concat(xs, w32, b, a), got)
     if dtype == torch.float32:  # and the conv over the concat
         cat = chw.conv_plain(torch.cat(xs, 1), wt, b, a, 1)
         assert norm_err(got, cat) < TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('tile', chw.CONV_TILES)
+def test_conv_cat_every_tile_matches_plain(cuda, dtype, tile):
+    g = torch.Generator().manual_seed(tile[0] + tile[1])
+    xs = [randn(g, 2, 24, 21, 45).to(cuda, dtype) for _ in range(3)]
+    wt = randn(g, 24, 72, 3, 3, scale=(9 * 72) ** -0.5).to(cuda, dtype)
+    b = randn(g, 24, scale=0.1).to(cuda)
+    assert norm_err(chw.conv_concat(xs, wt, b, None, tile=tile),
+                    chw.conv_concat_plain(xs, wt, b, None)) < TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -306,13 +324,16 @@ def test_up_skip_at_small_widths_matches_plain(cuda, dtype, cin, cout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('number', [3, 5])
+@pytest.mark.parametrize('number', [3, 4, 5])
 @pytest.mark.parametrize('reverse', [False, True])
 @pytest.mark.parametrize('patch', [False, True])
+# rows of whole 16-byte units in both types (W % 8 == 0; 1040: more than
+# one pass of a warp over a row), in float32 only (36), and in neither
+@pytest.mark.parametrize('h,w', [(19, 37), (18, 40), (13, 36), (12, 1040)])
 def test_shift_round_matches_plain_bit_for_bit(cuda, dtype, number, reverse,
-                                               patch):
+                                               patch, h, w):
     g = torch.Generator().manual_seed(number)
-    x = randn(g, 3, 16 * number, 19, 37).to(cuda, dtype)
+    x = randn(g, 3, 16 * number, h, w).to(cuda, dtype)
     kw = dict(reverse=reverse, boundary_patch=patch)
     chw.reset_launches()
     y, hw = naf_chw.shift_round(x, number, **kw)
