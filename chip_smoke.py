@@ -9,15 +9,18 @@ Phases, each of which must pass:
    is no CPU path: without a CUDA device the run fails.
 2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
    nine model kernels and the four probe kernels) into one library (one
-   nvcc per source, in parallel), then count the tensor-core (``HMMA``)
-   instructions in the SASS of the ``cab_front``, ``conv``, ``conv_cat``,
-   ``naf_gate``, ``naf_rep``, ``naf_back`` and ``up_skip`` kernels, both
-   types (``cuobjdump -sass``): every instantiation must have some.
+   nvcc per source, in parallel), then count instructions in its SASS
+   (``cuobjdump -sass``): every instantiation of the ``cab_front``,
+   ``conv``, ``conv_cat``, ``naf_gate``, ``naf_rep``, ``naf_back`` and
+   ``up_skip`` kernels must hold tensor-core (``HMMA``) instructions,
+   cab_back's 16-byte route 128-bit global loads (``LDG.E.128``), and the
+   staged copy's TMA kernel TMA loads and stores (``UTMALDG``,
+   ``UTMASTG``).
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
    depthwise naf_rep at n = 64 on its own row), in float32 (TF32 off) and
-   bfloat16,
+   bfloat16 (cab_back bit for bit, also in place, on its 16-byte route),
    with median times over 20 runs, the achieved rate of the kernels that
    compute (TF/s: their operations over their time), the least time the
    card could take for the same work (``bound_ms``) and, where one PyTorch
@@ -50,8 +53,9 @@ Phases, each of which must pass:
    then each of the ten probe kernels of ``ops/probes.py`` against its
    plain version at the JAX tool's largest shape (the permutation also at
    the port's shift_round and decoder_level1 shapes), copies bit for bit
-   and ``mm_loop`` within one bf16 ulp of its largest output, with median
-   times, bounds and the PyTorch call that computes the same function.
+   (every staged copy on the TMA route) and ``mm_loop`` within one bf16
+   ulp of its largest output, with median times, bounds and the PyTorch
+   call that computes the same function.
 
 The line before the last is a JSON object with each kernel's launches on
 every driven path, its error, its times and its bound; the last line is
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -200,25 +205,37 @@ MMA_KERNELS = ('cab_front_mma_kernel', 'conv_mma_kernel',
                'conv_cat_mma_kernel', 'naf_gate_mma_kernel',
                'naf_rep_mma_kernel', 'naf_back_mma_kernel',
                'up_skip_mma_kernel')
+# (label, what names the functions, the SASS opcode each must hold).
+SASS_CHECKS = (
+    *((name, (name,), 'HMMA') for name in MMA_KERNELS),
+    ('cab_back 16-byte route', ('cab_back_kernel', 'uint4'), 'LDG.E.128'),
+    ('staged copy on the TMA', ('block_copy_tma_kernel',), 'UTMALDG'),
+    ('staged copy on the TMA', ('block_copy_tma_kernel',), 'UTMASTG'),
+)
 
 
-def _hmma_counts(lib):
-    """{kernel template: [HMMA count of each instantiation]} from the SASS
-    of the built library (``cuobjdump -sass``)."""
+def _sass_counts(lib):
+    """[(label, opcode, [count in each instantiation])] for SASS_CHECKS,
+    from the SASS of the built library (``cuobjdump -sass``); an opcode
+    counts with its modifiers (``LDG.E.128.CONSTANT`` is an
+    ``LDG.E.128``)."""
     tool = shutil.which('cuobjdump') or os.path.join(
         os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')
     sass = subprocess.run([tool, '-sass', str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts = {name: [] for name in MMA_KERNELS}
-    current = None
+    functions = []  # (name line, [instruction lines])
     for line in sass.splitlines():
         if 'Function :' in line:
-            current = next((n for n in MMA_KERNELS if n in line), None)
-            if current:
-                counts[current].append(0)
-        elif current and 'HMMA' in line:
-            counts[current][-1] += 1
-    return counts
+            functions.append((line, []))
+        elif functions:
+            functions[-1][1].append(line)
+    out = []
+    for label, keys, op in SASS_CHECKS:
+        pat = re.compile(re.escape(op).replace(r'\.', r'[.\w]*\.') + r'\b')
+        out.append((label, op, [
+            sum(1 for ln in body if pat.search(ln))
+            for name, body in functions if all(k in name for k in keys)]))
+    return out
 
 
 def build_phase():
@@ -228,13 +245,13 @@ def build_phase():
     _build.library()
     dt = time.perf_counter() - t0
     print(f'build: {path.name} ready in {dt:.2f} s', flush=True)
-    for name, counts in _hmma_counts(path).items():
-        print(f'build: {name}: {len(counts)} instantiations, HMMA '
+    for label, op, counts in _sass_counts(path):
+        print(f'build: {label}: {len(counts)} instantiations, {op} '
               f'instructions in SASS {sum(counts)} (each {counts})',
               flush=True)
         if not counts or min(counts) == 0:
-            raise AssertionError(f'{name}: an instantiation has no '
-                                 'tensor-core instruction')
+            raise AssertionError(f'{label}: an instantiation has no {op} '
+                                 'instruction')
     return dt
 
 
@@ -289,12 +306,37 @@ def _nbytes(tensors):
 class Case:
     """One kernel call: ``kernel`` and ``plain`` compute the same function
     on ``inputs``; ``ops`` counts its arithmetic (2 per multiply-add);
-    ``library`` is one PyTorch call computing it, or None."""
+    ``library`` is one PyTorch call computing it, or None.  ``exact``:
+    held bit for bit; ``also``: other kernel calls of the same function
+    (in place), held bit for bit; ``route``: (the route the kernel takes,
+    the route it must take)."""
 
     def __init__(self, kernel, plain, inputs, ops, library=None,
-                 exact=False):
+                 exact=False, also=(), route=None):
         self.kernel, self.plain, self.inputs = kernel, plain, inputs
         self.ops, self.library, self.exact = ops, library, exact
+        self.also, self.route = also, route
+
+
+def _back_case(arr, unit, c, h, w):
+    """cab_back at C x h x w (T = 4): bit for bit, fresh and in place, on
+    the 16-byte route, beside ``torch.addcmul``."""
+    import torch
+    from shiftnet_tpu_torch.ops import chw
+
+    def back(rng, dt):
+        x = arr(rng, (T_CHECK, c, h, w), dt)
+        s = arr(rng, (T_CHECK, c, h, w), dt)
+        ca = unit(rng, (T_CHECK, c), dt)
+        return Case(lambda: chw.cab_back(x, s, ca),
+                    lambda: chw.cab_back_plain(x, s, ca),
+                    [x, s, ca], 2 * x.numel(),
+                    lambda: torch.addcmul(x, s, ca[:, :, None, None]),
+                    exact=True,
+                    also=(lambda: chw.cab_back(x.clone(), s, ca,
+                                               inplace=True),),
+                    route=(chw.cab_back_route(x, s, x), 'vector'))
+    return back
 
 
 def _cases():
@@ -359,16 +401,9 @@ def _cases():
                         lambda: chw.cab_front_plain(x, w1, alpha, w2),
                         [x, w1, alpha, w2], 2 * 2 * 9 * c * c * x[:, 0].numel())
 
-        def back(rng, dt, c=c, h=h, w=w):
-            x = arr(rng, (T_CHECK, c, h, w), dt)
-            s = arr(rng, (T_CHECK, c, h, w), dt)
-            ca = unit(rng, (T_CHECK, c), dt)
-            return Case(lambda: chw.cab_back(x, s, ca),
-                        lambda: chw.cab_back_plain(x, s, ca),
-                        [x, s, ca], 2 * x.numel(),
-                        lambda: torch.addcmul(x, s, ca[:, :, None, None]))
         cases.append(('cab_front', f'C={c} {h}x{w}', front))
-        cases.append(('cab_back', f'C={c} {h}x{w}', back))
+        cases.append(('cab_back', f'C={c} {h}x{w}',
+                      _back_case(arr, unit, c, h, w)))
 
     # -- row 4: conv (TFR downsamples, then the standalone convs)
     conv_shapes = (  # cin, cout, k, stride, bias, prelu, h, w
@@ -533,6 +568,8 @@ def _small_cases(arr, wgt, unit, naf_prep):
                         [x, w1, alpha, w2],
                         2 * 2 * 9 * c * c * x[:, 0].numel())
         cases.append(('cab_front', f'C={c} {hc}x{wc}', front))
+        cases.append(('cab_back', f'C={c} {hc}x{wc}',
+                      _back_case(arr, unit, c, hc, wc)))
 
     for cin, cout, k, st, pre, hc, wc in (
             (14, 64, 2, 2, True, H, W),             # down01
@@ -626,6 +663,13 @@ def kernel_phase(card):
                 else:
                     ok = all(e[0] <= _max_tol(dtn, e[3])
                              and e[1] <= MEAN_TOL[dtn] for e in errs)
+                for other in case.also:
+                    ok &= all(torch.equal(a, b)
+                              for a, b in zip(_outputs(other()), p_out))
+                route = ''
+                if case.route:
+                    route = f' route {case.route[0]}'
+                    ok &= case.route[0] == case.route[1]
                 ms = _median_ms(case.kernel)
                 pms = _median_ms(case.plain)
                 lms = None if case.library is None else _median_ms(
@@ -636,7 +680,7 @@ def kernel_phase(card):
             bound = max(t_bytes, t_ops)
             print(f'kernel {name:11s} {label:36s} {dtn:8s} err {err:.3e} '
                   f'(tol {tol:.2e}) mean {mean_err:.2e} '
-                  f'{"ok" if ok else "FAIL"}  kernel '
+                  f'{"ok" if ok else "FAIL"}{route}  kernel '
                   f'{ms:.3f} ms{_rate(case.ops, ms)}  plain {pms:.3f} ms  '
                   f'library '
                   f'{"none" if lms is None else f"{lms:.3f} ms"}  bound '
@@ -1007,13 +1051,15 @@ class ProbeCase:
     """One probe call: ``kernel`` and ``plain`` compute the same function;
     ``region`` picks what is compared (the written part of a copy);
     ``nbytes`` and ``ops`` are what the function must move and compute;
-    ``library`` is the PyTorch call(s) computing it, or None."""
+    ``library`` is the PyTorch call(s) computing it, or None; ``route``:
+    (the route the kernel takes, the route it must take), or None."""
 
     def __init__(self, kernel, plain, library, nbytes, ops=0, region=None,
-                 exact=True):
+                 exact=True, route=None):
         self.kernel, self.plain, self.library = kernel, plain, library
         self.nbytes, self.ops, self.exact = nbytes, ops, exact
         self.region = region or (lambda out: out)
+        self.route = route
 
 
 def _probe_cases():
@@ -1056,7 +1102,9 @@ def _probe_cases():
             lambda: probes.block_copy_plain(x, out_shape, pieces, lanes,
                                             **kw),
             library, nbytes,
-            region=lambda out: probes.written(out, pieces, lanes))
+            region=lambda out: probes.written(out, pieces, lanes),
+            route=((probes.staged_route(x, out_shape), 'tma') if staged
+                   else None))
 
     def copy_x2(t=microbench.T, h=microbench.H, w=microbench.W,
                 c=microbench.C):
@@ -1166,6 +1214,10 @@ def probe_phase(card):
                 err = mm_err(got, want)
                 ok = err <= MM_TOL
             del got, want
+            route = ''
+            if case.route:
+                route = f' route {case.route[0]}'
+                ok &= case.route[0] == case.route[1]
             ms = median_ms(case.kernel)
             pms = median_ms(case.plain)
             lms = None if case.library is None else median_ms(case.library)
@@ -1175,7 +1227,7 @@ def probe_phase(card):
         rate = (f'{case.ops / ms / 1e9:.1f} TF/s' if case.ops
                 else f'{case.nbytes / ms / 1e6:.0f} GB/s')
         print(f'probe {name:14s} {label:44s} err {err:.3e} '
-              f'{"ok" if ok else "FAIL"}  kernel {ms:.4f} ms ({rate}, '
+              f'{"ok" if ok else "FAIL"}{route}  kernel {ms:.4f} ms ({rate}, '
               f'{100 * bound / ms:.1f} % of bound)  plain {pms:.4f} ms  '
               f'library {"none" if lms is None else f"{lms:.4f} ms"}  bound '
               f'{bound:.4f} ms ({case.nbytes / 1e6:.2f} MB, '

@@ -23,7 +23,40 @@
 // neighbouring threads on neighbouring addresses, 16 bytes a thread when the
 // source and destination rows are 16-byte aligned, 2 bytes a thread when not.
 //
-// Staged design.  One block per (piece, lane tile).  The tile is cut into
+// Staged design, on the TMA (block_copy_tma_kernel; tma.cuh).  The pieces
+// are cut into boxes of box_rows x box_lanes elements (ops/probes.tma_plan,
+// at most STAGE_BYTES); box b is found from the pieces' first boxes.  One
+// thread a block issues the copies: cp.async.bulk.tensor loads a box from
+// a 2-D map of the whole source, at element coordinates (any source row is
+// exact), into a ring of `stages` shared-memory stages, each with a
+// transaction-count mbarrier; when a box has landed, a TMA store writes it
+// out and bulk groups free its stage.  With scale != 1 the block's warps
+// wait on the stage's barrier and scale the box in shared memory (float32
+// multiply, round to nearest even, as torch's bf16 multiply does), then
+// fence.proxy.async and a block barrier order those writes before the TMA
+// store reads them.  Blocks take one box each where one wave holds every
+// box, else are persistent over the boxes.
+//   A load's first lane must lie on the 16-byte grid: a box at a source
+// lane 6 bytes past it stopped the kernel with an illegal instruction
+// (NVIDIA H100, CUDA 12.8).  A source lane off the grid therefore loads
+// from the lane rounded down, 8 lanes wider, and the warps shift each row
+// by the `shift` lanes into a second box of the stage, which the store
+// reads.
+//   Clipping.  A store clips only at its map's own bounds, so each run of
+// pieces of equal rows whose destinations are equally spaced has a 3-D
+// map of its own, (lanes, rows, pieces of the run): a box that overhangs a
+// piece's rows or lanes writes nothing past them.  Up to kParamMaps run
+// maps travel in the kernel parameter; more are copied into device memory
+// before the launch and acquired by the issuing thread before use.
+//   Constraints of a map (the wrapper routes around them): the source and
+// destination 16-byte aligned, the source and destination row lengths a
+// multiple of 8 elements; a box of at most 256 x 256, its row a multiple
+// of 16 bytes.  The wrapper's boxes take whole 128-byte lines where they
+// are that wide, so no store leaves a 32-byte sector part written.
+//
+// Staged design, cp.async (block_copy_staged_kernel), for what a tensor map
+// cannot describe (a row length not a multiple of 8 elements, a misaligned
+// base).  One block per (piece, lane tile).  The tile is cut into
 // chunks of whole rows (or row segments, for a tile wider than a slot) that
 // fit a 16 KB slot; two slots, double buffered: cp.async (16 bytes, .cg)
 // fills one while the block writes the other out.  cp.async needs 16-byte
@@ -36,11 +69,12 @@
 // 512-byte granular.  The write-out stores 16 bytes a thread on the
 // destination's 16-byte grid (scalar at a misaligned head and at the tail),
 // reading the slot as one 16-byte word when its offset is aligned too and
-// as eight halfwords otherwise; `scale` != 1 multiplies in float32 and
-// rounds to nearest even, as torch's bf16 multiply does.
+// as eight halfwords otherwise; `scale` != 1 multiplies as above.
 #include <algorithm>
+#include <vector>
 
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace shiftnet {
 
@@ -198,6 +232,124 @@ __global__ void __launch_bounds__(kCopyThreads)
   }
 }
 
+constexpr int kParamMaps = 8;  // run maps in the kernel parameter
+constexpr int kTmaTouchThreads = 128;
+constexpr int kTmaSmem = 232448;  // the most a block may have
+
+// The plan of a TMA copy (ops/probes.tma_plan): a kernel parameter.
+struct TmaCopy {
+  CUtensorMap src;              // (source lanes, source rows)
+  CUtensorMap dst[kParamMaps];  // each run: (lanes, rows, pieces)
+  const CUtensorMap* dst_mem;   // the run maps in device memory, or null
+  int src_row[kMaxPieces];      // a piece's first row in the source map
+  int first_box[kMaxPieces + 1];  // piece p's boxes: first_box[p] ..
+  short run[kMaxPieces], slot[kMaxPieces];  // its run, its place there
+  int n_pieces, n_runs;
+  int lane0;      // the source lane of a piece's first load, 16-byte aligned
+  int shift;      // the piece's first lane past lane0, 0 .. 7
+  int box_rows, box_lanes, lane_boxes;  // the stored box; lane boxes a row
+  int load_lanes;  // the loaded box's lanes: box_lanes, or 8 more to shift
+  int stages, stride;  // the ring: stages of `stride` bytes
+  int out_off;     // where a stage's shifted box starts (0: not shifted)
+  float scale;
+};
+
+// kTouch: the warps touch each box in shared memory (scale != 1, or a
+// shift), else one thread runs the copies.
+template <bool kTouch>
+__global__ void __launch_bounds__(kTmaTouchThreads)
+    block_copy_tma_kernel(const __grid_constant__ TmaCopy a) {
+  using namespace tma;
+  extern __shared__ unsigned char raw[];
+  const uint32_t align = ((smem_addr(raw) + 127) & ~127u) - smem_addr(raw);
+  const uint32_t stride = a.stride;
+  const uint32_t stage0 = smem_addr(raw) + align;
+  const uint32_t bars = stage0 + a.stages * stride;
+  const int n_mine =
+      (a.first_box[a.n_pieces] - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const bool leader = threadIdx.x == 0;
+
+  // Box j of this block: its piece, and its first lane and row there.
+  auto locate = [&](int j, int& p, int& l0, int& r0) {
+    const int b = blockIdx.x + j * gridDim.x;
+    int lo = 0, hi = a.n_pieces - 1;  // the last piece starting by b
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (a.first_box[mid] <= b) lo = mid; else hi = mid - 1;
+    }
+    p = lo;
+    const int k = b - a.first_box[p];
+    r0 = k / a.lane_boxes * a.box_rows;
+    l0 = k % a.lane_boxes * a.box_lanes;
+  };
+  auto load = [&](int j) {
+    int p, l0, r0;
+    locate(j, p, l0, r0);
+    const int s = j % a.stages;
+    mbar_expect_tx(bars + 8 * s, 2 * a.box_rows * a.load_lanes);
+    tma_load_2d(stage0 + s * stride, &a.src, a.lane0 + l0, a.src_row[p] + r0,
+                bars + 8 * s);
+  };
+  auto store = [&](int j) {
+    int p, l0, r0;
+    locate(j, p, l0, r0);
+    const CUtensorMap* map =
+        a.dst_mem ? a.dst_mem + a.run[p] : &a.dst[a.run[p]];
+    tma_store_3d(map, l0, r0, a.slot[p],
+                 stage0 + (j % a.stages) * stride + a.out_off);
+  };
+
+  if (leader) {
+    for (int s = 0; s < a.stages; ++s) mbar_init(bars + 8 * s, 1);
+    mbar_fence_init();
+    if (a.dst_mem)
+      for (int r = 0; r < a.n_runs; ++r) tensormap_acquire(a.dst_mem + r);
+    for (int j = 0; j < min(a.stages, n_mine); ++j) load(j);
+  }
+  if (!kTouch && !leader) return;  // one thread copies
+  if (kTouch) __syncthreads();     // the barriers are initialised
+  const int units = a.box_rows * a.box_lanes / 8;  // 16-byte units a box
+  for (int j = 0; j < n_mine; ++j) {
+    const int s = j % a.stages;
+    mbar_wait(bars + 8 * s, (j / a.stages) & 1);
+    if (kTouch) {
+      unsigned char* stage = raw + align + s * stride;
+      uint4* box = reinterpret_cast<uint4*>(stage + a.out_off);
+      const uint16_t* in = reinterpret_cast<const uint16_t*>(stage);
+      const int per_row = a.box_lanes / 8;
+      for (int i = threadIdx.x; i < units; i += blockDim.x) {
+        union {
+          uint4 q;
+          uint16_t h[8];
+        } v;
+        if (a.shift) {  // row r, lanes c .. c + 7 of the stored box
+          const int r = i / per_row, c = (i - r * per_row) * 8;
+          const uint16_t* from = in + r * a.load_lanes + c + a.shift;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v.h[e] = from[e];
+        } else {
+          v.q = box[i];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v.h[e] = scaled(v.h[e], a.scale);
+        box[i] = v.q;
+      }
+    }
+    fence_proxy_async();  // the box's writes before the TMA store's reads
+    if (kTouch) __syncthreads();
+    if (leader) {
+      store(j);
+      bulk_commit();
+      // Refill the stage of box j - 1 once its store has read it.
+      if (j >= 1 && j - 1 + a.stages < n_mine) {
+        bulk_wait_read<1>();
+        load(j - 1 + a.stages);
+      }
+    }
+  }
+  if (leader) bulk_wait_all();  // the stores are done with shared memory
+}
+
 static int copy_pieces(const long long* table, int n_pieces, Pieces* p) {
   if (n_pieces < 1 || n_pieces > kMaxPieces) return 0;
   for (int i = 0; i < 3 * n_pieces; ++i) p->v[i] = table[i];
@@ -246,5 +398,104 @@ extern "C" int shiftnet_block_copy_staged(const void* x, void* out,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), p, lanes,
       src_ld, dst_ld, tile, scale);
+  return (int)cudaGetLastError();
+}
+
+// The staged copy on the TMA (block_copy_tma_kernel), as planned by
+// ops/probes.tma_plan.  plan: source lanes and rows (its 2-D map), the
+// destination row length, lanes, lane0, shift, box_rows, box_lanes,
+// lane_boxes, load_lanes, stages, stride, out_off, blocks and the number
+// of boxes; runs: n_runs x (dst,
+// rows, pieces, step) in elements, each run's destination map; pieces:
+// n_pieces x (src_row, run, slot, first_box).  maps: device memory for
+// n_runs maps where n_runs > kParamMaps, else null.  Returns the
+// cudaError_t of the launch, or 10000 + the CUresult of a map the driver
+// refused to encode.
+extern "C" int shiftnet_block_copy_tma(const void* x, void* out,
+                                       const long long* plan,
+                                       const long long* runs, int n_runs,
+                                       const long long* pieces, int n_pieces,
+                                       float scale, void* maps,
+                                       void* stream) {
+  using namespace shiftnet;
+  const long long src_lanes = plan[0], src_rows = plan[1], dst_ld = plan[2],
+                  lanes = plan[3];
+  TmaCopy a;
+  a.n_pieces = n_pieces;
+  a.n_runs = n_runs;
+  a.lane0 = (int)plan[4];
+  a.shift = (int)plan[5];
+  a.box_rows = (int)plan[6];
+  a.box_lanes = (int)plan[7];
+  a.lane_boxes = (int)plan[8];
+  a.load_lanes = (int)plan[9];
+  a.stages = (int)plan[10];
+  a.stride = (int)plan[11];
+  a.out_off = (int)plan[12];
+  const long long blocks = plan[13], n_boxes = plan[14];
+  a.scale = scale;
+  // the stages, their barriers, and the slack to align the first
+  const long long smem = 128 + (long long)a.stages * a.stride + 8 * a.stages;
+  const bool shifted = a.shift != 0;
+  if (n_pieces < 1 || n_pieces > kMaxPieces || n_runs < 1 ||
+      n_runs > n_pieces || (n_runs > kParamMaps) != (maps != nullptr) ||
+      a.stages < 1 || smem > kTmaSmem || a.stride % 128 || a.shift < 0 ||
+      a.shift > 7 || a.lane0 % 8 || a.box_lanes % 8 ||
+      a.load_lanes != a.box_lanes + (shifted ? 8 : 0) ||
+      (shifted ? a.out_off < 2 * a.box_rows * a.load_lanes
+               : a.out_off != 0) ||
+      a.out_off % 128 ||
+      a.out_off + 2LL * a.box_rows * a.box_lanes > a.stride || blocks < 1 ||
+      blocks > n_boxes || n_boxes > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_pieces; ++i) {
+    a.src_row[i] = (int)pieces[4 * i];
+    a.run[i] = (short)pieces[4 * i + 1];
+    a.slot[i] = (short)pieces[4 * i + 2];
+    a.first_box[i] = (int)pieces[4 * i + 3];
+  }
+  a.first_box[n_pieces] = (int)n_boxes;
+
+  const uint64_t sdims[2] = {(uint64_t)src_lanes, (uint64_t)src_rows};
+  const uint64_t sstride[1] = {2ULL * src_lanes};
+  const uint32_t sbox[2] = {(uint32_t)a.load_lanes, (uint32_t)a.box_rows};
+  int err = tma::encode_tiled(&a.src, x, 2, sdims, sstride, sbox);
+  if (err) return 10000 + err;
+  std::vector<CUtensorMap> mem(maps ? n_runs : 0);
+  for (int r = 0; r < n_runs; ++r) {
+    const long long* run = runs + 4 * r;
+    const uint64_t dims[3] = {(uint64_t)lanes, (uint64_t)run[1],
+                              (uint64_t)run[2]};
+    const uint64_t strides[2] = {2ULL * dst_ld, 2ULL * run[3]};
+    const uint32_t box[3] = {(uint32_t)a.box_lanes, (uint32_t)a.box_rows, 1};
+    err = tma::encode_tiled(maps ? &mem[r] : &a.dst[r],
+                            static_cast<uint16_t*>(out) + run[0], 3, dims,
+                            strides, box);
+    if (err) return 10000 + err;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  a.dst_mem = static_cast<const CUtensorMap*>(maps);
+  if (maps) {
+    // From pageable memory: staged before the call returns, so `mem` may go.
+    const cudaError_t e =
+        cudaMemcpyAsync(maps, mem.data(), n_runs * sizeof(CUtensorMap),
+                        cudaMemcpyHostToDevice, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  static const bool sized = [] {  // dynamic shared memory past 48 KB
+    cudaFuncSetAttribute(block_copy_tma_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kTmaSmem);
+    cudaFuncSetAttribute(block_copy_tma_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kTmaSmem);
+    return true;
+  }();
+  (void)sized;
+  if (scale != 1.f || shifted)
+    block_copy_tma_kernel<true><<<(unsigned)blocks, kTmaTouchThreads,
+                                  (int)smem, st>>>(a);
+  else
+    block_copy_tma_kernel<false><<<(unsigned)blocks, 32, (int)smem, st>>>(a);
   return (int)cudaGetLastError();
 }

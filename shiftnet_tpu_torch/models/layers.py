@@ -52,7 +52,7 @@ class Conv2d(nn.Module):
     def forward(self, x):
         if self.fused:
             b = None if self.bias is None else self.bias.to(x.dtype).float()
-            return chw.conv(x, self.weight.to(x.dtype), b, None, self.stride)
+            return chw.conv(x, self.weight, b, None, self.stride)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
                         self.padding, groups=self.groups)
@@ -72,11 +72,9 @@ class Conv2d(nn.Module):
         dt = xs[0].dtype
         b = None if self.bias is None else self.bias.to(dt).float()
         a = None if alpha is None else alpha.to(dt).float()
-        if virtual:  # conv_concat rounds the weight (the kernel's panels
-            # are packed once per weight)
+        if virtual:
             return chw.conv_concat(xs, self.weight, b, a)
-        return chw.conv(torch.cat(xs, dim=1), self.weight.to(dt), b, a,
-                        self.stride)
+        return chw.conv(torch.cat(xs, dim=1), self.weight, b, a, self.stride)
 
 
 class PReLU(nn.Module):
@@ -102,8 +100,8 @@ class ConvPReLU(nn.Sequential):
         if not conv.fused:
             return act(conv(x))
         b = None if conv.bias is None else conv.bias.to(x.dtype).float()
-        return chw.conv(x, conv.weight.to(x.dtype), b,
-                        act.weight.to(x.dtype).float(), conv.stride)
+        return chw.conv(x, conv.weight, b, act.weight.to(x.dtype).float(),
+                        conv.stride)
 
 
 class LayerNorm2d(nn.Module):

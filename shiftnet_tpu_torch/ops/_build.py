@@ -32,7 +32,7 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     'shiftnet_cab_front': [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P],
-    'shiftnet_cab_back': [_I, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
+    'shiftnet_cab_back': [_I, _P, _P, _P, _P, _I, _LL, _I, _P],
     'shiftnet_conv': [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P],
     'shiftnet_up_skip': [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -50,6 +50,8 @@ SIGNATURES = {
     'shiftnet_block_copy': [_P, _P, _LLP, _I, _I, _LL, _LL, _P],
     'shiftnet_block_copy_staged': [_P, _P, _LLP, _I, _I, _LL, _LL, _I,
                                    ctypes.c_float, _P],
+    'shiftnet_block_copy_tma': [_P, _P, _LLP, _LLP, _I, _LLP, _I,
+                                ctypes.c_float, _P, _P],
     'shiftnet_strided_copy': [_P, _P, _I, _I, _I, _I, _P],
 }
 

@@ -14,9 +14,11 @@ Dispatch, the same for every public op:
 
 ``LAUNCHES`` counts kernel launches per op, this module's five and the
 shift-block kernels of ``ops/naf_chw``, so a run can show that it went
-through the kernels.  Conv weights come in the activation type (the caller
-casts the float32 parameters, as flax's ``dtype=`` does); PReLU slopes and
-biases stay float32, and the kernels apply them in float32.
+through the kernels.  Conv weights come as the float32 parameters (or in
+the activation type): each kernel rounds them to the activation type, as
+flax's ``dtype=`` does, and keeps their packed panels on the parameter
+(``tap_panel``, ``cat_panel``); PReLU slopes and biases stay float32, and
+the kernels apply them in float32.
 """
 from __future__ import annotations
 
@@ -155,6 +157,17 @@ def _kept_panel(w: torch.Tensor, dtype: torch.dtype, attr: str,
     return hit[1]
 
 
+def tap_panel(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor-core panels of a conv weight (Cout, Cin, K, K): (K*K, Np,
+    KP) in ``dtype`` (``pack_taps`` at ``mma_layout``), the weight rounded
+    to dtype, packed once per weight (``_kept_panel``)."""
+    c_out, c_in = w.shape[:2]
+    layout = mma_layout(c_in, c_out, torch.empty((), dtype=dtype
+                                                 ).element_size())
+    return _kept_panel(w, dtype, '_tap_panel',
+                       lambda v: pack_taps(v, *layout))
+
+
 def cm_pitch(m: int) -> int:
     """Row length (elements) of a channel-major tile of m pixels (naf_back,
     up_skip): m rounded up to 16 plus 8 (``cm_pitch`` in conv_core.cuh)."""
@@ -217,13 +230,16 @@ def cab_front(x: torch.Tensor, w1: torch.Tensor, alpha: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """CAB body conv3x3 -> PReLU -> conv3x3 (bias-free).
 
-    x: (T, C, H, W); w1, w2: (C, C, 3, 3) in x's type; alpha: (1,) float32.
-    ``tile``: the kernel's output tile, else ``cab_front_tile``'s.
+    x: (T, C, H, W); w1, w2: (C, C, 3, 3) in x's type or float32 (the
+    parameters themselves, rounded to x's type; the kernel reads their
+    panels, ``tap_panel``, packed once); alpha: (1,) float32.  ``tile``:
+    the kernel's output tile, else ``cab_front_tile``'s.
     Returns s (T, C, H, W) and its float32 channel sums (T, C).
     """
     if not _on_cuda(x):
-        return cab_front_plain(x, w1, alpha, w2)
-    code = _check('cab_front', x, w1, w2, f32=(alpha,))
+        return cab_front_plain(x, w1.to(x.dtype), alpha, w2.to(x.dtype))
+    same, f32 = ((w1, w2), ()) if w1.dtype == x.dtype else ((), (w1, w2))
+    code = _check('cab_front', x, *same, f32=(alpha, *f32))
     t, c, h, w = x.shape
     if w1.shape != (c, c, 3, 3) or w2.shape != (c, c, 3, 3):
         raise ValueError(f'cab_front: weights {w1.shape} {w2.shape} for C={c}')
@@ -233,8 +249,8 @@ def cab_front(x: torch.Tensor, w1: torch.Tensor, alpha: torch.Tensor,
         raise ValueError(f'cab_front: tile {th}x{tw} at C={c}: not a tile '
                          'the kernel takes')
     n_blocks = -(-h // th) * -(-w // tw)
-    np_, kp = mma_layout(c, c, size)
-    w1t, w2t = pack_taps(w1, np_, kp), pack_taps(w2, np_, kp)
+    w1t, w2t = tap_panel(w1, x.dtype), tap_panel(w2, x.dtype)
+    np_, kp = w1t.shape[1:]
     s = torch.empty_like(x)
     part = torch.empty((t, n_blocks, c), device=x.device, dtype=torch.float32)
     lib = _build.library()
@@ -264,23 +280,34 @@ def cab_back_plain(x, s, ca, inplace=False):
     return x.add_(scaled) if inplace else x + scaled
 
 
+def cab_back_route(x: torch.Tensor, s: torch.Tensor,
+                   out: torch.Tensor) -> str:
+    """``'vector'`` where csrc/cab_back.cu can move 16-byte units (a plane
+    of x a whole number of them, x, s and out 16-byte aligned), else
+    ``'element'``."""
+    plane = x.shape[2] * x.shape[3] * x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, s, out))
+    return 'vector' if plane % 16 == 0 and aligned else 'element'
+
+
 def cab_back(x: torch.Tensor, s: torch.Tensor, ca: torch.Tensor, *,
              inplace: bool = False) -> torch.Tensor:
-    """out = x + s * ca[t, c].  ``inplace`` writes over x: only for callers
-    that know x is dead afterwards."""
+    """out = x + s * ca[t, c], the product rounded to x's type before the
+    add.  ``inplace`` writes over x: only for callers that know x is dead
+    afterwards.  The kernel's route, 16-byte units or single elements, is
+    ``cab_back_route``'s."""
     if not _on_cuda(x):
         return cab_back_plain(x, s, ca, inplace)
     code = _check('cab_back', x, s, ca)
     t, c, h, w = x.shape
     if s.shape != x.shape or ca.shape != (t, c):
         raise ValueError(f'cab_back: s {s.shape}, ca {ca.shape}, x {x.shape}')
-    if t * c > 65535:
-        raise ValueError(f'cab_back: T*C={t * c} exceeds the grid')
     out = x if inplace else torch.empty_like(x)
+    vector = cab_back_route(x, s, out) == 'vector'
     lib = _build.library()
     _build.check(lib.shiftnet_cab_back(
         code, x.data_ptr(), s.data_ptr(), ca.data_ptr(), out.data_ptr(),
-        t * c, h * w, _stream()), 'cab_back')
+        t * c, h * w, int(vector), _stream()), 'cab_back')
     LAUNCHES['cab_back'] += 1
     return out
 
@@ -337,11 +364,14 @@ def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     """Direct KxK conv (K in 2, 3, 5; stride 1 or 2) with optional float32
     bias and PReLU slope, both applied in float32 before the cast.
 
-    x: (T, Cin, H, W); w: (Cout, Cin, K, K) in x's type.  ``tile``: the
-    kernel's output tile, else ``conv_tile``'s."""
+    x: (T, Cin, H, W); w: (Cout, Cin, K, K) in x's type or float32 (the
+    parameter itself, rounded to x's type; the kernel reads its panels,
+    ``tap_panel``, packed once).  ``tile``: the kernel's output tile, else
+    ``conv_tile``'s."""
     if not _on_cuda(x):
-        return conv_plain(x, w, bias, alpha, stride)
-    code = _check('conv', x, w, f32=(bias, alpha))
+        return conv_plain(x, w.to(x.dtype), bias, alpha, stride)
+    same, f32 = ((w,), ()) if w.dtype == x.dtype else ((), (w,))
+    code = _check('conv', x, *same, f32=(bias, alpha, *f32))
     t, cin, h, wd = x.shape
     cout, cin_w, k, k2 = w.shape
     if cin_w != cin or k != k2 or k not in (2, 3, 5) or stride not in (1, 2):
@@ -351,14 +381,14 @@ def conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     ho = (h + 2 * pad - k) // stride + 1
     wo = (wd + 2 * pad - k) // stride + 1
     size = x.element_size()
-    np_, kp = mma_layout(cin, cout, size)
     th, tw = tile or conv_tile(cin, cout, k, stride, size)
     if conv_smem(cin, cout, k, stride, th, tw, size) > SMEM_BYTES:
         raise ValueError(f'conv: tile {th}x{tw} does not fit in shared '
                          'memory')
     out = torch.empty((t, cout, ho, wo), device=x.device, dtype=x.dtype)
+    wp = tap_panel(w, x.dtype)
+    np_, kp = wp.shape[1:]
     lib = _build.library()
-    wp = pack_taps(w, np_, kp)
     _build.check(lib.shiftnet_conv(
         code, x.data_ptr(), wp.data_ptr(),
         None if bias is None else bias.data_ptr(),
@@ -514,17 +544,6 @@ def up_skip_tile(c_in: int, c_out: int, itemsize: int) -> tuple[int, int]:
                                                   tw), itemsize)
 
 
-def up_panel(w11: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The tensor-core panel of a SkipUpSample's 1x1 weight (Cout, Cin, 1,
-    1): (1, Np, KP) in ``dtype`` (``pack_taps`` at ``mma_layout``), the
-    weight rounded to dtype, packed once per weight (``_kept_panel``)."""
-    c_out, c_in = w11.shape[:2]
-    layout = mma_layout(c_in, c_out, torch.empty((), dtype=dtype
-                                                 ).element_size())
-    return _kept_panel(w11, dtype, '_up_panel',
-                       lambda v: pack_taps(v, *layout))
-
-
 def up_skip_plain(x, w11, skip):
     return F.conv2d(bilinear_up2x(x), w11) + skip
 
@@ -535,7 +554,7 @@ def up_skip(x: torch.Tensor, w11: torch.Tensor, skip: torch.Tensor, *,
 
     x: (T, Cin, h, w); w11: (Cout, Cin, 1, 1), in x's type or float32 (the
     parameter itself, rounded to x's type; the kernel reads its panel,
-    ``up_panel``, packed once); skip: (T, Cout, 2h, 2w).  ``tile``: the
+    ``tap_panel``, packed once); skip: (T, Cout, 2h, 2w).  ``tile``: the
     kernel's low-resolution tile, else ``up_skip_tile``'s."""
     if not _on_cuda(x):
         return up_skip_plain(x, w11.to(x.dtype), skip)
@@ -554,7 +573,7 @@ def up_skip(x: torch.Tensor, w11: torch.Tensor, skip: torch.Tensor, *,
             or th < 1 or 256 % (2 * tw * size // 16)):
         raise ValueError(f'up_skip: tile {th}x{tw} at {cin}->{cout}: not a '
                          'tile the kernel takes')
-    wp = up_panel(w11, x.dtype)
+    wp = tap_panel(w11, x.dtype)
     out = torch.empty_like(skip)
     vec = (2 * w * size) % 16 == 0 and all(
         v.data_ptr() % 16 == 0 for v in (skip, out))
@@ -579,12 +598,11 @@ def cab(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
         inplace: bool = False) -> torch.Tensor:
     """Plain CAB (``layers.CAB``) as cab_front -> ca_mlp -> cab_back.
     ``p`` holds torch-named parameters; ``name`` is the CAB's prefix."""
-    dt = x.dtype
     k = prefix(name)
-    s, sums = cab_front(x, p[f'{k}body.0.weight'].to(dt),
-                        p[f'{k}body.1.weight'], p[f'{k}body.2.weight'].to(dt))
+    s, sums = cab_front(x, p[f'{k}body.0.weight'], p[f'{k}body.1.weight'],
+                        p[f'{k}body.2.weight'])
     ca = ca_mlp(sums, x.shape[2] * x.shape[3], p[f'{k}CA.conv_du.0.weight'],
-                p[f'{k}CA.conv_du.2.weight'], dt)
+                p[f'{k}CA.conv_du.2.weight'], x.dtype)
     return cab_back(x, s, ca, inplace=inplace)
 
 
@@ -594,10 +612,9 @@ def down(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
     bias-free followed by PReLU."""
     k = prefix(name)
     if with_prelu:
-        return conv(x, p[f'{k}down.0.weight'].to(x.dtype), None,
-                    p[f'{k}down.1.weight'], stride=2)
-    return conv(x, p[f'{k}down.weight'].to(x.dtype), p[f'{k}down.bias'],
-                None, stride=2)
+        return conv(x, p[f'{k}down.0.weight'], None, p[f'{k}down.1.weight'],
+                    stride=2)
+    return conv(x, p[f'{k}down.weight'], p[f'{k}down.bias'], None, stride=2)
 
 
 def tfr_unet(p: dict[str, torch.Tensor], x: torch.Tensor, *,

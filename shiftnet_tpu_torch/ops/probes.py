@@ -8,7 +8,8 @@ Counterparts of the Pallas probe kernels of the JAX package's ``tools/``
 - ``block_copy`` (``csrc/probe_copy.cu``, direct): ``tools/
   probe_hbm_copy.py:29`` ``_copy_kernel``, ``tools/probe_copy_bw.py:45``
   ``_hbm_kernel`` and ``tools/probe_dma_align.py:64`` ``_slice_kernel``;
-- ``block_copy_staged`` (``csrc/probe_copy.cu``, through shared memory):
+- ``block_copy_staged`` (``csrc/probe_copy.cu``, through shared memory, on
+  the TMA where tensor maps describe the copy, ``staged_route``):
   ``tools/microbench.py:126`` ``copy_kernel``, ``tools/probe_copy_bw.py:61``
   ``_vmem_kernel`` and ``tools/probe_dma_align.py:34`` ``_dma_off_kernel``;
 - ``strided_copy`` (``csrc/probe_stride.cu``): ``tools/probe_chw.py:119``
@@ -28,12 +29,15 @@ comparison reads only ``written``.
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from shiftnet_tpu_torch.ops import _build
-from shiftnet_tpu_torch.ops.chw import SMEM_BYTES, _on_cuda, _stream
+from shiftnet_tpu_torch.ops.chw import (SM_SMEM_BYTES, SMEM_BYTES, _on_cuda,
+                                        _stream)
 
 LAUNCHES = {'mm_loop': 0, 'block_copy': 0, 'block_copy_staged': 0,
             'strided_copy': 0}
@@ -41,6 +45,14 @@ LAUNCHES = {'mm_loop': 0, 'block_copy': 0, 'block_copy_staged': 0,
 SMS = 132          # streaming multiprocessors of an H100 SXM
 MAX_PIECES = 128   # csrc/probe_copy.cu, kMaxPieces: the table is a kernel
                    # parameter
+# The TMA copy (csrc/probe_copy.cu, block_copy_tma_kernel).
+TMA_STAGES = 4       # the ring of shared-memory stages of a persistent block
+STAGE_BYTES = 24576  # a stage at most: a 40 x 256 box
+PARAM_MAPS = 8       # kParamMaps: run maps that travel in the kernel parameter
+BOX_MAX = 256        # a tensor map's box dimension at most
+LINE_LANES = 64      # a 128-byte line: box lanes come in whole lines
+SMALL_LANES = 64     # box lanes of a small copy at most
+TOUCH_THREADS = 128  # kTmaTouchThreads: a block that scales or shifts
 STRIDE_MODES = {'lane': 0, 'block': 1, 'store': 2}
 STRIDE_BLOCK = 128  # lanes per block of the row-block stride (k_sub_stride)
 
@@ -182,6 +194,151 @@ def staged_tile(lanes: int, n_pieces: int) -> int:
     return min(lanes, max(64, want))
 
 
+def staged_route(x: torch.Tensor, out_shape) -> str:
+    """``'tma'`` where tensor maps describe a staged copy from x into a
+    fresh ``out_shape`` output: x 16-byte aligned, the source's and the
+    output's rows a whole number of 16-byte units (a map's strides), the
+    source's rows within a coordinate's 31 bits; else ``'cp.async'``."""
+    (sfr, srows, sl), dl = x.shape, out_shape[2]
+    ok = (x.data_ptr() % 16 == 0 and sl % 8 == 0 and dl % 8 == 0
+          and sfr * srows < 2 ** 31)
+    return 'tma' if ok else 'cp.async'
+
+
+@dataclass(frozen=True)
+class TmaPlan:
+    """A staged copy on the TMA (``csrc/probe_copy.cu``,
+    ``block_copy_tma_kernel``), in elements.
+
+    The source is one 2-D map, ``src_lanes`` lanes by ``src_rows`` rows.
+    Each of ``runs``, ``(dst, rows, n, step)``, is a destination map: n
+    pieces of ``rows`` rows by ``lanes`` lanes, piece i at ``dst + i *
+    step`` with rows ``dst_ld`` apart; a store clips at its run's rows and
+    lanes.  ``pieces`` are ``(src_row, run, slot, first_box)``: a piece's
+    first row in the source map, its run and place there, and its first
+    box.  Box b of piece p covers the piece's rows from ``k // lane_boxes *
+    box_rows`` and lanes from ``k % lane_boxes * box_lanes``, k = b -
+    first_box.  A load must start on the 16-byte grid, so it reads
+    ``load_lanes`` lanes from source lane ``src_lane - shift`` plus that
+    lane, and the box is its lanes ``shift ..``: with a shift the stored
+    box lies ``out_off`` bytes into its stage.  Block i of ``blocks`` takes
+    boxes i, i + blocks, ... through a ring of ``stages`` stages of
+    ``stride`` bytes."""
+
+    src_lanes: int
+    src_rows: int
+    dst_ld: int
+    lanes: int
+    src_lane: int
+    shift: int
+    box_rows: int
+    box_lanes: int
+    lane_boxes: int
+    load_lanes: int
+    stages: int
+    stride: int
+    out_off: int
+    blocks: int
+    n_boxes: int
+    runs: tuple[tuple[int, int, int, int], ...]
+    pieces: tuple[tuple[int, int, int, int], ...]
+
+    def smem(self) -> int:
+        """Dynamic shared memory of a block: the stages, their barriers,
+        and the slack to align the first to 128 bytes."""
+        return 128 + self.stages * (self.stride + 8)
+
+    def locate(self, b: int) -> tuple[int, int, int]:
+        """(piece, first row, first lane) of box b, as the kernel finds
+        them."""
+        p = bisect.bisect_right([q[3] for q in self.pieces], b) - 1
+        k = b - self.pieces[p][3]
+        return (p, k // self.lane_boxes * self.box_rows,
+                k % self.lane_boxes * self.box_lanes)
+
+
+def _runs(pieces, drows: int, dl: int):
+    """Group the pieces, in order, into runs of equal rows whose
+    destinations are equally spaced and do not overlap: [(dst, rows, n,
+    step)] and each piece's (run, slot)."""
+    runs, where = [], []
+    for _, _, df, dr, rows in pieces:
+        dst = (df * drows + dr) * dl
+        if runs and runs[-1][1] == rows:
+            d0, _, n, step = runs[-1]
+            if n == 1 and dst - d0 >= rows * dl:
+                step = dst - d0
+            if dst - d0 == n * step:
+                runs[-1] = (d0, rows, n + 1, step)
+                where.append((len(runs) - 1, n))
+                continue
+        runs.append((dst, rows, 1, rows * dl))
+        where.append((len(runs) - 1, 0))
+    return runs, where
+
+
+def _stage(box_rows: int, box_lanes: int, shift: int) -> tuple[int, int]:
+    """(stride, out_off) of a stage: the loaded box, and after it the
+    shifted box where there is a shift, each at 128-byte alignment."""
+    line = 128
+    loaded = _cdiv(2 * box_rows * (box_lanes + (8 if shift else 0)),
+                   line) * line
+    if not shift:
+        return loaded, 0
+    return loaded + _cdiv(2 * box_rows * box_lanes, line) * line, loaded
+
+
+def tma_plan(x_shape, out_shape, pieces, lanes: int,
+             src_lane: int = 0) -> TmaPlan:
+    """The boxes of a staged copy on the TMA (``TmaPlan``).  A box takes
+    the pieces' rows whole up to 256 (else in equal row blocks), and as
+    many lanes as fit a ``STAGE_BYTES`` stage, in whole 128-byte lines
+    where it is that wide.  A copy under ``SMS`` stages' bytes takes boxes
+    of at most ``SMALL_LANES`` lanes, so that many are in flight at once.
+    Where one wave of one-stage blocks holds every box, each block takes
+    one box; else the blocks are persistent, ``TMA_STAGES`` stages each, as
+    many as shared memory keeps on every SM, with the same number of boxes
+    each (one more for some)."""
+    (_, srows_f, sl), (_, drows, dl) = tuple(x_shape), tuple(out_shape)
+    rows = [p[4] for p in pieces]
+    shift = src_lane % 8
+    box_rows = _cdiv(max(rows), _cdiv(max(rows), BOX_MAX))
+    cap = BOX_MAX - (8 if shift else 0)
+    while _stage(box_rows, cap, shift)[0] > STAGE_BYTES:
+        cap -= 8
+    if 2 * sum(rows) * lanes < SMS * STAGE_BYTES:
+        cap = min(cap, SMALL_LANES)
+    if cap >= LINE_LANES:
+        cap -= cap % LINE_LANES
+    box_lanes = min(cap, _cdiv(lanes, 8) * 8)
+    lane_boxes = _cdiv(lanes, box_lanes)
+    first, n_boxes = [], 0
+    for r in rows:
+        first.append(n_boxes)
+        n_boxes += _cdiv(r, box_rows) * lane_boxes
+    runs, where = _runs(pieces, drows, dl)
+    stride, out_off = _stage(box_rows, box_lanes, shift)
+    # blocks an SM: shared memory (and 1 KB the card keeps a block), threads
+    per_sm = min(SM_SMEM_BYTES // (128 + stride + 8 + 1024),
+                 2048 // TOUCH_THREADS)
+    if n_boxes <= SMS * per_sm:
+        blocks, stages = n_boxes, 1
+    else:
+        stages = TMA_STAGES
+        most = SMS * (SM_SMEM_BYTES // (128 + stages * (stride + 8) + 1024))
+        blocks = _cdiv(n_boxes, _cdiv(n_boxes, most))
+    return TmaPlan(
+        src_lanes=sl, src_rows=x_shape[0] * srows_f, dst_ld=dl, lanes=lanes,
+        src_lane=src_lane, shift=shift, box_rows=box_rows,
+        box_lanes=box_lanes, lane_boxes=lane_boxes,
+        load_lanes=box_lanes + (8 if shift else 0), stages=stages,
+        stride=stride, out_off=out_off, blocks=blocks, n_boxes=n_boxes,
+        runs=tuple(runs),
+        pieces=tuple((sf * srows_f + sr, run, slot, f)
+                     for (sf, sr, _, _, _), (run, slot), f
+                     in zip(pieces, where, first)))
+
+
 def block_copy_plain(x, out_shape, pieces, lanes, src_lane=0, scale=1.0):
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     for sf, sr, df, dr, rows in pieces:
@@ -221,25 +378,59 @@ def block_copy(x: torch.Tensor, out_shape, pieces, lanes: int, *,
                         x, tuple(out_shape), pieces, lanes, src_lane)
 
 
+def _launch_tma(x, out_shape, pieces, lanes, src_lane, scale):
+    _check_bf16('block_copy_staged', x)
+    piece_table('block_copy_staged', x, out_shape, pieces, lanes, src_lane)
+    plan = tma_plan(x.shape, out_shape, pieces, lanes, src_lane)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    head = (plan.src_lanes, plan.src_rows, plan.dst_ld, plan.lanes,
+            plan.src_lane - plan.shift, plan.shift, plan.box_rows,
+            plan.box_lanes, plan.lane_boxes, plan.load_lanes, plan.stages,
+            plan.stride, plan.out_off, plan.blocks, plan.n_boxes)
+    runs = [v for run in plan.runs for v in run]
+    table = [v for piece in plan.pieces for v in piece]
+    # more run maps than the kernel parameter holds: device memory, 128
+    # bytes a map, written by the launch
+    maps = (torch.empty(128 * len(plan.runs), dtype=torch.uint8,
+                        device=x.device)
+            if len(plan.runs) > PARAM_MAPS else None)
+
+    def arr(v):
+        return (ctypes.c_longlong * len(v))(*v)
+    _build.check(_build.library().shiftnet_block_copy_tma(
+        x.data_ptr(), out.data_ptr(), arr(head), arr(runs), len(plan.runs),
+        arr(table), len(plan.pieces), ctypes.c_float(scale),
+        None if maps is None else maps.data_ptr(), _stream()),
+        'block_copy_staged')
+    LAUNCHES['block_copy_staged'] += 1
+    return out
+
+
 def block_copy_staged(x: torch.Tensor, out_shape, pieces, lanes: int, *,
                       tile: int | None = None, scale: float = 1.0,
                       src_lane: int = 0) -> torch.Tensor:
-    """The pieces copied through shared memory with ``cp.async``, double
-    buffered, times ``scale`` (``tools/microbench.py:126`` ``copy_kernel``,
+    """The pieces copied through shared memory, times ``scale``
+    (``tools/microbench.py:126`` ``copy_kernel``,
     ``tools/probe_copy_bw.py:61`` ``_vmem_kernel``,
-    ``tools/probe_dma_align.py:34`` ``_dma_off_kernel``).  One block takes
-    one piece's ``tile`` lanes (by default ``staged_tile``); the last tile
-    of a piece may be narrower."""
+    ``tools/probe_dma_align.py:34`` ``_dma_off_kernel``).  On the TMA in
+    the boxes of ``tma_plan`` where ``staged_route`` says so; else with
+    ``cp.async``, double buffered, one block taking one piece's ``tile``
+    lanes (by default ``staged_tile``; the last tile of a piece may be
+    narrower).  ``tile`` is the cp.async route's work split; the TMA route
+    splits by boxes."""
     if not _on_cuda(x):
         return block_copy_plain(x, out_shape, pieces, lanes, src_lane,
                                 scale)
+    out_shape = tuple(out_shape)
     tile = staged_tile(lanes, len(pieces)) if tile is None else tile
     if not 0 < tile <= lanes:
         raise ValueError(f'block_copy_staged: tile {tile} of {lanes} lanes')
+    if x.dim() == 3 and len(out_shape) == 3 and staged_route(
+            x, out_shape) == 'tma':
+        return _launch_tma(x, out_shape, pieces, lanes, src_lane, scale)
     return _launch_copy(_build.library().shiftnet_block_copy_staged,
-                        'block_copy_staged', x, tuple(out_shape), pieces,
-                        lanes, src_lane, tile,
-                        ctypes.c_float(scale))
+                        'block_copy_staged', x, out_shape, pieces, lanes,
+                        src_lane, tile, ctypes.c_float(scale))
 
 
 # -- strided_copy -------------------------------------------------------------

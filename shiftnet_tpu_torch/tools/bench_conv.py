@@ -1,7 +1,8 @@
 """Times of the tensor-core kernels (``cab_front``, ``conv``, ``conv_cat``,
-``naf_gate``, ``naf_rep``, ``naf_back``, ``up_skip``) and of ``shift_round``
-at the main path's shapes, beside their plain versions, cuDNN (or a direct
-copy) and their bounds.
+``naf_gate``, ``naf_rep``, ``naf_back``, ``up_skip``) and of the bandwidth
+kernels ``shift_round`` and ``cab_back`` at the main path's shapes, beside
+their plain versions, cuDNN (or a direct copy, or ``torch.addcmul``) and
+their bounds.
 
   python -m shiftnet_tpu_torch.tools.bench_conv [--tiles] [--f32] [--only K]
 
@@ -17,14 +18,17 @@ tile of ``CAB_TILES`` / ``CONV_TILES`` / ``naf_chw.TILES`` /
 tile); ``--f32`` adds the float32 forms (with ``--tiles``, at every tile
 too); ``--only`` times one kernel family (``cab``, ``conv``, ``cat``
 (conv_cat), ``naf`` (naf_gate and naf_rep), ``back`` (naf_back), ``up``
-(up_skip) or ``shift`` (shift_round)).  The naf blocks' weights are seeded
-``init_state`` weights of a CAB2 / CAB1, through ``prep_naf``; up_skip's
-and conv_cat's weights are seeded in the activation type and their panels
-packed once, as the model's are, before the timed runs.  conv_cat's line
+(up_skip), ``shift`` (shift_round) or ``cabback`` (cab_back)).  The naf
+blocks' weights are seeded ``init_state`` weights of a CAB2 / CAB1,
+through ``prep_naf``; up_skip's and conv_cat's weights are seeded in the
+activation type and their panels packed once, as the model's are, before
+the timed runs.  conv_cat's line
 adds ``conv`` over the concat (the cat not timed); shift_round's library
 column is a direct copy of the same bytes (``Tensor.copy_`` of x into y
 and of the moved channels into hw), and it computes nothing, so its rate
-reads 0.
+reads 0.  cab_back's line adds its time in place (as the level chains run
+it) and its route (16-byte units or elements); its library column is
+``torch.addcmul(x, s, ca[:, :, None, None])``.
 
 The script reads only the ops' public functions, so it also times an
 older checkout of the port: ``PYTHONPATH=<checkout> python
@@ -328,9 +332,28 @@ def bench_up(dtype, tiles):
         del x, skip
 
 
+def bench_cabback(dtype, tiles):
+    # an older checkout of the port has one route and no cab_back_route
+    route_of = getattr(chw, 'cab_back_route', None)
+    for i, (c, h, w) in enumerate(CAB_SHAPES):
+        x = _randn((T, c, h, w), 1800 + i, dtype)
+        s = _randn((T, c, h, w), 1900 + i, dtype)
+        ca = torch.sigmoid(_randn((T, c), 2000 + i, torch.float32)).to(dtype)
+        xc = x.clone()
+        nbytes = (3 * x.numel() + ca.numel()) * x.element_size()
+        plain = median_ms(lambda: chw.cab_back_plain(x, s, ca))
+        lib = median_ms(lambda: torch.addcmul(x, s, ca[:, :, None, None]))
+        ms = median_ms(lambda: chw.cab_back(x, s, ca))
+        inplace = median_ms(lambda: chw.cab_back(xc, s, ca, inplace=True))
+        route = route_of(x, s, x) if route_of else 'one'
+        _line(f'cab_back C={c} {h}x{w}', ms, 2 * x.numel(), nbytes, dtype,
+              plain, lib, '', f' | in place {inplace:.3f} | route {route}')
+        del x, s, xc
+
+
 FAMILIES = (('cab', bench_cab), ('conv', bench_conv), ('cat', bench_cat),
             ('naf', bench_naf), ('back', bench_back), ('up', bench_up),
-            ('shift', bench_shift))
+            ('shift', bench_shift), ('cabback', bench_cabback))
 
 
 def main(argv=None) -> int:

@@ -9,10 +9,11 @@ shape, (16, 384, 1280, 24) bf16 NHWC: a 3x3 conv 24 -> 24 as ``F.conv2d``
 in ``channels_last`` (cuDNN), as 9 tap matmuls, as im2col, as a 2x2
 space-to-depth product, and a dense (M/4, 512) @ (512, 512) product; then
 ``out[0] = 2 * x[0]`` through ``ops.probes.block_copy_staged`` in 32-row
-slabs (the Pallas ``copy_kernel``), checked bit for bit against its plain
-version; then ``x * 1.5 + 0.25`` at 24 and 128 channels.  The formulations
-are plain PyTorch measurements, not kernels of the port.  Median of 20
-CUDA-event-timed runs per op.  Needs a CUDA device.
+slabs (the Pallas ``copy_kernel``; its route printed, the TMA at this
+shape), checked bit for bit against its plain version; then ``x * 1.5 +
+0.25`` at 24 and 128 channels.  The formulations are plain PyTorch
+measurements, not kernels of the port.  Median of 20 CUDA-event-timed
+runs per op.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -103,6 +104,7 @@ def copy_x2(x: torch.Tensor) -> dict:
         return probes.block_copy_staged(src, (1, h, w * c), pieces, w * c,
                                         scale=2.0)
     got = run()
+    route = probes.staged_route(src, (1, h, w * c))
     want = probes.block_copy_plain(src, (1, h, w * c), pieces, w * c,
                                    scale=2.0)
     ok = torch.equal(probes.written(got, pieces, w * c),
@@ -111,7 +113,8 @@ def copy_x2(x: torch.Tensor) -> dict:
     nbytes = h * w * c * 2 * 2
     print(f'{"staged copy x2 (32 rows,1280,24) unpadded":<46s} {ms:8.3f} ms'
           f'  -> {nbytes / ms / 1e6:.0f} GB/s (bound {bytes_ms(nbytes):.3f} '
-          f'ms)  {"OK bit-exact" if ok else "FAIL"}', flush=True)
+          f'ms)  route {route}  {"OK bit-exact" if ok else "FAIL"}',
+          flush=True)
     return dict(ms=ms, ok=ok)
 
 

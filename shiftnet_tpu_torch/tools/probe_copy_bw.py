@@ -12,9 +12,11 @@ shape, (12, 320, 72320) bf16 with pp 4, cb 80, half 40 (the L1 shift of the
 packed layout):
 
 - direct: ``ops.probes.block_copy`` (the Pallas ``_hbm_kernel``);
-- staged: ``ops.probes.block_copy_staged`` in the JAX tool's lane tiles, 8
-  and 16 a frame of 72320 // n rounded down to 128 (the Pallas
-  ``_vmem_kernel``; the lanes past n * tile are not written);
+- staged: ``ops.probes.block_copy_staged`` over the JAX tool's lane
+  tiles, 8 and 16 a frame of 72320 // n rounded down to 128 (the Pallas
+  ``_vmem_kernel``; the lanes past n * tile are not written), on the route
+  it prints (the TMA at every shape here, which splits by boxes, not by
+  tiles);
 - ``Tensor.copy_`` of the same slices (three calls), and the JAX tool's
   slice + concat of one channel block (``torch.roll`` and ``torch.cat``).
 
@@ -67,6 +69,7 @@ def run_case(label: str, x: torch.Tensor, pp: int, half: int, *,
     else:
         def run():
             return probes.block_copy(x, x.shape, pieces, lanes)
+    route = f' route {probes.staged_route(x, x.shape)}' if staged else ''
     want = probes.block_copy_plain(x, x.shape, pieces, lanes)
     ok = torch.equal(probes.written(run(), pieces, lanes),
                      probes.written(want, pieces, lanes))
@@ -78,8 +81,8 @@ def run_case(label: str, x: torch.Tensor, pp: int, half: int, *,
     bound = bytes_ms(nbytes)
     print(f'{label}: {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s r+w, '
           f'{100 * bound / ms:.0f} % of the {bound:.3f} ms bound) | '
-          f'Tensor.copy_ {lib_ms:.3f} ms ({nbytes / lib_ms / 1e6:.0f} GB/s) '
-          f'{"OK bit-exact" if ok else "FAIL"}', flush=True)
+          f'Tensor.copy_ {lib_ms:.3f} ms ({nbytes / lib_ms / 1e6:.0f} GB/s)'
+          f'{route} {"OK bit-exact" if ok else "FAIL"}', flush=True)
     return dict(ms=ms, library_ms=lib_ms, bound_ms=bound, ok=ok)
 
 

@@ -9,9 +9,11 @@ rows; here a 2 KB row of (128, 1024) bf16 keeps every row offset 16-byte
 aligned, so the probes add the Hopper form of the question, a source 6
 bytes past a 16-byte boundary on every row:
 
-- ``out = x[off:off + 48]`` staged through shared memory with ``cp.async``
+- ``out = x[off:off + 48]`` staged through shared memory
   (``ops.probes.block_copy_staged``, the Pallas ``_dma_off_kernel``), at
-  off 40 and 8, and at off 40 with lanes 3 .. 1019;
+  off 40 and 8, and at off 40 with lanes 3 .. 1019: on the TMA, whose
+  tensor map takes the source row and lane as element coordinates, so
+  neither needs rounding (the route is printed);
 - ``out = x[off:off + 40]`` copied directly (``ops.probes.block_copy``,
   the Pallas ``_slice_kernel``), the same offsets.
 
@@ -38,6 +40,8 @@ def _probe(label: str, copy, seed: int, off: int, rows: int,
     x = randn_bf16((1, 128, M), seed)
     lanes = M - 8 if lane else M
     pieces = [(0, off, 0, 0, rows)]
+    route = (f' route {probes.staged_route(x, (1, rows, lanes))}'
+             if copy is probes.block_copy_staged else '')
 
     def run():
         return copy(x, (1, rows, lanes), pieces, lanes, src_lane=lane)
@@ -46,7 +50,7 @@ def _probe(label: str, copy, seed: int, off: int, rows: int,
                 .abs().max())
     ms = median_ms(run)
     where = f'{off}' + (f', lane {lane} ({2 * lane} B)' if lane else '')
-    print(f'{label} offset {where} (bfloat16): '
+    print(f'{label} offset {where} (bfloat16):{route} '
           f'{"OK" if err == 0.0 else "FAIL"} err={err}  {1e3 * ms:.2f} us',
           flush=True)
     return err == 0.0

@@ -361,7 +361,7 @@ def test_up_panel_unpacks_to_the_rounded_weight(cin, cout, itemsize):
     rng = np.random.default_rng(cin + cout)
     w11 = torch.from_numpy(rng.standard_normal((cout, cin, 1, 1)).astype(
         np.float32))
-    panel = chw.up_panel(w11, dt)
+    panel = chw.tap_panel(w11, dt)
     np_, kp = chw.mma_layout(cin, cout, itemsize)
     assert panel.shape == (1, np_, kp) and panel.dtype == dt
     assert np_ % 8 == 0 and np_ >= cout and (kp * itemsize // 16) % 2 == 1
@@ -380,18 +380,18 @@ def test_up_panel_is_packed_once_per_weight():
     ``load_state_dict`` does) packs it anew."""
     mod = layers.SkipUpSample(24, 16)
     w = mod.up[1].weight
-    first = chw.up_panel(w, torch.bfloat16)
-    assert chw.up_panel(w, torch.bfloat16) is first
-    f32 = chw.up_panel(w, torch.float32)
+    first = chw.tap_panel(w, torch.bfloat16)
+    assert chw.tap_panel(w, torch.bfloat16) is first
+    f32 = chw.tap_panel(w, torch.float32)
     assert f32.dtype == torch.float32
     with torch.no_grad():
         w.mul_(2.0)
-    again = chw.up_panel(w, torch.float32)
+    again = chw.tap_panel(w, torch.float32)
     assert again is not f32
     assert torch.equal(again[0, :16, :24], w[:, :, 0, 0].detach())
     with torch.inference_mode():
         w_inf = torch.ones(16, 24, 1, 1)
-    assert torch.equal(chw.up_panel(w_inf, torch.float32)[0, :16, :24],
+    assert torch.equal(chw.tap_panel(w_inf, torch.float32)[0, :16, :24],
                        w_inf[:, :, 0, 0])
 
 
@@ -407,6 +407,65 @@ def test_up_skip_takes_the_float32_parameter():
     with torch.no_grad():
         got = mod(x, skip)
     assert torch.equal(got, chw.up_skip_plain(x, w.to(torch.bfloat16), skip))
+
+
+@pytest.mark.parametrize('dtype,h,w,offset,route', [
+    (torch.bfloat16, 16, 16, 0, 'vector'),   # 256 elements: 32 units
+    (torch.bfloat16, 720, 1280, 0, 'vector'),  # the 720p plane
+    (torch.float32, 2, 2, 0, 'vector'),      # one 16-byte unit
+    (torch.bfloat16, 19, 37, 0, 'element'),  # the tests' ragged frames
+    (torch.float32, 3, 3, 0, 'element'),     # 36 bytes a plane
+    (torch.bfloat16, 16, 16, 1, 'element'),  # x 2 bytes off the grid
+    (torch.float32, 2, 2, 2, 'element')])    # x 8 bytes off the grid
+def test_cab_back_route(dtype, h, w, offset, route):
+    """The 16-byte route where a plane is a whole number of 16-byte units
+    and x, s and out are 16-byte aligned; element by element otherwise."""
+    shape = (2, 3, h, w)
+    n = 2 * 3 * h * w
+    x = torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+    s = torch.zeros(shape, dtype=dtype)
+    assert chw.cab_back_route(x, s, torch.empty_like(s)) == route
+    if offset == 0:  # a misaligned s or out takes the element route too
+        off = torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+        assert chw.cab_back_route(x, off, s) == 'element'
+        assert chw.cab_back_route(x, s, off) == 'element'
+
+
+def test_tap_panel_is_packed_once_per_weight():
+    """cab_front's and conv's panels are kept with the weight, as
+    up_skip's is: a second call returns the panel as it is, another
+    type a new one; writing the weight in place packs it anew."""
+    mod = layers.Conv2d(12, 20, 3)
+    seeded(mod, 5)
+    w = mod.weight
+    first = chw.tap_panel(w, torch.bfloat16)
+    assert first.shape == (9, *chw.mma_layout(12, 20, 2))
+    assert chw.tap_panel(w, torch.bfloat16) is first
+    f32 = chw.tap_panel(w, torch.float32)
+    assert f32 is not first and f32.dtype == torch.float32
+    assert torch.equal(f32, chw.pack_taps(w.detach(),
+                                          *chw.mma_layout(12, 20, 4)))
+    with torch.no_grad():
+        w.mul_(2.0)
+    again = chw.tap_panel(w, torch.float32)
+    assert again is not f32
+    assert torch.equal(again[4, :20, :12], w[:, :, 1, 1].detach())
+
+
+def test_cab_front_and_conv_take_the_float32_parameters():
+    """``cab`` and the fused convs hand cab_front and conv their float32
+    parameters, rounded to the activation type inside: the same result as
+    the weights cast by the caller, on the plain path here."""
+    x = torch.from_numpy(rand((2, 8, 5, 7), 17)).to(torch.bfloat16)
+    w1, w2 = (torch.from_numpy(0.1 * rand((8, 8, 3, 3), 18 + i))
+              for i in range(2))
+    alpha = torch.tensor([0.25])
+    got = chw.cab_front(x, w1, alpha, w2)
+    want = chw.cab_front_plain(x, w1.bfloat16(), alpha, w2.bfloat16())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    b = torch.from_numpy(0.01 * rand((8,), 20))
+    assert torch.equal(chw.conv(x, w1, b, None, 2),
+                       chw.conv_plain(x, w1.bfloat16(), b, None, 2))
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -654,6 +654,112 @@ def test_block_copy_staged_wide_tile(cuda):
                        probes.written(want, pieces, 20003))
 
 
+# Staged copies on the TMA route: each probe tool's copy at its full shape
+# (x shape, out shape, pieces, lanes, src_lane, scale); then boxes ragged in
+# rows (293 > 256) and lanes (997, not 8-aligned, under the output's 1000)
+# beside other pieces of the output; then more runs (12 piece heights) than
+# the kernel parameter holds, so the maps go through device memory.
+TMA_COPIES = {
+    'copy_x2': ((16, 384, 30720), (1, 384, 30720),
+                probes.slab_pieces(384, 32), 30720, 0, 2.0),
+    'permute_jax_8_tiles': ((12, 320, 72320), (12, 320, 72320),
+                            probes.shift_pieces(12, 4, 80, 40), 71680, 0,
+                            1.0),
+    'permute_jax_16_tiles': ((12, 320, 72320), (12, 320, 72320),
+                             probes.shift_pieces(12, 4, 80, 40), 72192, 0,
+                             1.0),
+    'permute_port_t4': ((4, 80, 230400), (4, 80, 230400),
+                        probes.shift_pieces(4, 1, 80, 40), 230400, 0, 1.0),
+    'permute_port_t40': ((40, 80, 230400), (40, 80, 230400),
+                         probes.shift_pieces(40, 1, 80, 40), 230400, 0,
+                         1.0),
+    'dma_offset_40': ((1, 128, 1024), (1, 48, 1024), [(0, 40, 0, 0, 48)],
+                      1024, 0, 1.0),
+    'dma_offset_8': ((1, 128, 1024), (1, 48, 1024), [(0, 8, 0, 0, 48)],
+                     1024, 0, 1.0),
+    'dma_lane_3': ((1, 128, 1024), (1, 48, 1016), [(0, 40, 0, 0, 48)],
+                   1016, 3, 1.0),
+    'ragged_boxes': ((2, 300, 1000), (3, 310, 1000),
+                     [(0, 1, 1, 3, 293), (1, 5, 2, 0, 293),
+                      (1, 0, 0, 300, 9)], 997, 2, 2.0),
+    'many_runs': ((1, 200, 64), (1, 200, 64),
+                  [(0, 15 * i, 0, 16 * i, 3 + i) for i in range(12)], 56, 8,
+                  1.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(TMA_COPIES))
+def test_tma_copy_matches_plain(cuda, case):
+    x_shape, out_shape, pieces, lanes, src_lane, scale = TMA_COPIES[case]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    assert probes.staged_route(x, out_shape) == 'tma'
+    probes.reset_launches()
+    got = probes.block_copy_staged(x, out_shape, pieces, lanes,
+                                   src_lane=src_lane, scale=scale)
+    want = probes.block_copy_plain(x, out_shape, pieces, lanes, src_lane,
+                                   scale)
+    assert torch.equal(probes.written(got, pieces, lanes),
+                       probes.written(want, pieces, lanes))
+    assert probes.LAUNCHES['block_copy_staged'] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fused_cab_and_conv_keep_their_panels(cuda, dtype):
+    """The fused CAB and conv hand the kernels their float32 parameters:
+    each weight's panels are packed at the first call and reused at the
+    next, and the result is the kernels' on the weights cast by the
+    caller."""
+    cab = layers.CAB(24, fused=True)
+    conv = layers.Conv2d(24, 36, 3, stride=2, fused=True)
+    for mod, seed in ((cab, 3), (conv, 4)):
+        mod.load_state_dict(init_state(mod, seed), strict=True)
+        mod.to(cuda)
+    g = torch.Generator().manual_seed(5)
+    x = randn(g, 2, 24, 20, 36).to(cuda, dtype)
+    w1, w2 = cab.body[0].weight, cab.body[2].weight
+    with torch.no_grad():
+        got, down = cab(x), conv(x)
+        panels = [w._tap_panel[1] for w in (w1, w2, conv.weight)]
+        assert torch.equal(cab(x), got) and torch.equal(conv(x), down)
+        assert all(w._tap_panel[1] is p
+                   for w, p in zip((w1, w2, conv.weight), panels))
+        s, sums = chw.cab_front(x, w1.to(dtype), cab.body[1].weight,
+                                w2.to(dtype))
+        ca = chw.ca_mlp(sums, 20 * 36, cab.CA.conv_du[0].weight,
+                        cab.CA.conv_du[2].weight, dtype)
+        assert torch.equal(got, chw.cab_back(x, s, ca))
+        assert torch.equal(down, chw.conv(x, conv.weight.to(dtype), None,
+                                          None, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c,h,w,offset', [
+    (24, 90, 160, 0), (80, 16, 40, 0), (24, 16, 16, 0),  # 16-byte units
+    (24, 19, 37, 0), (14, 33, 20, 0), (22, 21, 45, 0),   # ragged planes
+    (24, 16, 16, 1)])                                    # x off the grid
+def test_cab_back_matches_plain_bit_for_bit(cuda, dtype, c, h, w, offset):
+    g = torch.Generator().manual_seed(c + h)
+    shape = (3, c, h, w)
+    n = 3 * c * h * w
+    x = randn(g, n + offset).to(cuda, dtype)[offset:].view(shape)
+    s = randn(g, *shape).to(cuda, dtype)
+    ca = torch.rand(3, c, generator=g).to(cuda, dtype)
+    unit = 16 // x.element_size()
+    vector = h * w % unit == 0 and offset == 0
+    assert chw.cab_back_route(x, s, x) == ('vector' if vector else 'element')
+    want = chw.cab_back_plain(x, s, ca)
+    chw.reset_launches()
+    assert torch.equal(chw.cab_back(x, s, ca), want)
+    xc = x.clone()
+    out = chw.cab_back(xc, s, ca, inplace=True)
+    assert out.data_ptr() == xc.data_ptr() and torch.equal(out, want)
+    assert chw.LAUNCHES['cab_back'] == 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('mode', ['lane', 'block', 'store'])
 @pytest.mark.parametrize('rows,m', [(24, 2560), (5, 512)])

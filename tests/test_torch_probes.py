@@ -25,7 +25,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from shiftnet_tpu_torch.ops import probes
+from shiftnet_tpu_torch.ops import chw, probes
 from shiftnet_tpu_torch.tools import microbench_mm as port_mm
 
 REPO = Path(__file__).resolve().parents[1]
@@ -276,6 +276,150 @@ def test_piece_lists_match_numpy():
         probes.piece_table('test', tx, out_shape, pieces, 35, src_lane)
     with pytest.raises(ValueError):  # lanes past the output's
         probes.piece_table('test', tx, (2, 9, 30), pieces, 31)
+
+
+def run_plan(x: torch.Tensor, plan: probes.TmaPlan, out: torch.Tensor,
+             scale: float = 1.0) -> torch.Tensor:
+    """``block_copy_tma_kernel``'s boxes, executed with tensor slicing: each
+    box loaded from the 2-D source map (zeros outside it) at a lane on the
+    16-byte grid, shifted and scaled, then stored through its run's 3-D
+    map, which writes nothing outside the run's rows and lanes.  Returns
+    how often each element of ``out`` was written."""
+    src = x.reshape(plan.src_rows, plan.src_lanes)
+    flat = out.view(-1)
+    writes = torch.zeros(out.numel(), dtype=torch.int16)
+    for b in range(plan.n_boxes):
+        p, r0, l0 = plan.locate(b)
+        src_row, run, slot, _ = plan.pieces[p]
+        box = torch.zeros((plan.box_rows, plan.load_lanes), dtype=x.dtype)
+        rs, ls = src_row + r0, plan.src_lane - plan.shift + l0
+        assert ls % 8 == 0  # a load starts on the 16-byte grid
+        part = src[rs:rs + plan.box_rows, ls:ls + plan.load_lanes]
+        box[:part.shape[0], :part.shape[1]] = part
+        box = box[:, plan.shift:plan.shift + plan.box_lanes]
+        if scale != 1.0:
+            box = box * scale
+        dst, rows, n, step = plan.runs[run]
+        shape, strides = (n, rows, plan.lanes), (step, plan.dst_ld, 1)
+        nr = min(plan.box_rows, rows - r0)
+        nl = min(plan.box_lanes, plan.lanes - l0)
+        flat.as_strided(shape, strides, dst)[
+            slot, r0:r0 + nr, l0:l0 + nl] = box[:nr, :nl]
+        writes.as_strided(shape, strides, dst)[
+            slot, r0:r0 + nr, l0:l0 + nl] += 1
+    return writes
+
+
+# Staged copies at the probe tools' shapes (only the frames a copy reads;
+# the permutations' lanes cut, keeping the JAX tool's pp 4 and the port's pp
+# 1 and a copy large enough for persistent blocks); then pieces whose rows
+# (over 256) and lanes (not 8-aligned, narrower than the output's rows) are
+# not multiples of the box, beside other rows of the output; then more runs
+# than the kernel parameter holds.
+TMA_CASES = {  # x shape, out shape, pieces, lanes, src_lane, scale
+    'dma_offset_40': ((1, 128, 1024), (1, 48, 1024), [(0, 40, 0, 0, 48)],
+                      1024, 0, 1.0),
+    'dma_offset_8': ((1, 128, 1024), (1, 48, 1024), [(0, 8, 0, 0, 48)],
+                     1024, 0, 1.0),
+    'dma_lane_3': ((1, 128, 1024), (1, 48, 1016), [(0, 40, 0, 0, 48)],
+                   1016, 3, 1.0),
+    'slabs_x2': ((1, 384, 30720), (1, 384, 30720),
+                 probes.slab_pieces(384, 32), 30720, 0, 2.0),
+    'permute_pp4': ((12, 320, 1032), (12, 320, 1032),
+                    probes.shift_pieces(12, 4, 80, 40), 1024, 0, 1.0),
+    'permute_pp1': ((4, 80, 4000), (4, 80, 4000),
+                    probes.shift_pieces(4, 1, 80, 40), 4000, 0, 1.0),
+    'ragged': ((2, 300, 1000), (3, 310, 1000),
+               [(0, 1, 1, 3, 293), (1, 5, 2, 0, 293), (1, 0, 0, 300, 9)],
+               997, 2, 2.0),
+    'many_runs': ((1, 200, 64), (1, 200, 64),
+                  [(0, 15 * i, 0, 16 * i, 3 + i) for i in range(12)], 56, 8,
+                  1.0),
+}
+
+
+@pytest.mark.parametrize('case', list(TMA_CASES))
+def test_tma_plan_reproduces_the_copy(case):
+    """The TMA route's boxes (``probes.tma_plan``), run as the kernel runs
+    them, write every element of every piece once, bit for bit as
+    ``block_copy_plain``, and nothing else: the stores clip at each run's
+    rows and lanes."""
+    x_shape, out_shape, pieces, lanes, src_lane, scale = TMA_CASES[case]
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        x_shape).astype(np.float32)).bfloat16()
+    assert probes.staged_route(x, out_shape) == 'tma'
+    plan = probes.tma_plan(x.shape, out_shape, pieces, lanes, src_lane)
+    assert plan.box_rows <= probes.BOX_MAX and plan.box_lanes % 8 == 0
+    assert plan.load_lanes <= probes.BOX_MAX
+    assert plan.stride <= probes.STAGE_BYTES and plan.stride % 128 == 0
+    assert plan.smem() <= chw.SMEM_BYTES
+    if case == 'many_runs':
+        assert len(plan.runs) > probes.PARAM_MAPS
+    elif case.startswith(('dma', 'slabs', 'permute')):
+        assert len(plan.runs) == 1
+    out = torch.full(out_shape, float('nan'), dtype=torch.bfloat16)
+    writes = run_plan(x, plan, out, scale)
+    want = probes.block_copy_plain(x, out_shape, pieces, lanes, src_lane,
+                                   scale)
+    np.testing.assert_array_equal(
+        bf16_bits(probes.written(out, pieces, lanes)),
+        bf16_bits(probes.written(want, pieces, lanes)))
+    mask = torch.zeros(out_shape, dtype=torch.bool)
+    for _, _, df, dr, rows in pieces:
+        mask[df, dr:dr + rows, :lanes] = True
+    assert (writes[mask.view(-1)] == 1).all()
+    assert (writes[~mask.view(-1)] == 0).all()
+
+
+@pytest.mark.parametrize('x_shape,out_shape,pieces,lanes,src_lane', [
+    ((16, 384, 30720), (1, 384, 30720), probes.slab_pieces(384, 32), 30720,
+     0),
+    ((12, 320, 72320), (12, 320, 72320), probes.shift_pieces(12, 4, 80, 40),
+     71680, 0),
+    ((12, 320, 72320), (12, 320, 72320), probes.shift_pieces(12, 4, 80, 40),
+     72192, 0),
+    ((40, 80, 230400), (40, 80, 230400), probes.shift_pieces(40, 1, 80, 40),
+     230400, 0),
+    ((1, 128, 1024), (1, 48, 1016), [(0, 40, 0, 0, 48)], 1016, 3)])
+def test_probe_tool_shapes_take_the_tma_route(x_shape, out_shape, pieces,
+                                              lanes, src_lane):
+    """Every staged copy the probe tools and ``chip_smoke.py`` make, at its
+    full shape: the TMA route, one run, whole boxes of at most a stage,
+    every box of every piece (the boxes of a piece tile its rows and
+    lanes), boxes in whole 128-byte lines, and blocks that fit in shared
+    memory: one box each where one wave holds them, else persistent,
+    several an SM."""
+    x = torch.empty(x_shape, dtype=torch.bfloat16, device='meta')
+    assert probes.staged_route(x, out_shape) == 'tma'
+    plan = probes.tma_plan(x_shape, out_shape, pieces, lanes, src_lane)
+    assert len(plan.runs) == 1 and plan.runs[0][2] == len(pieces)
+    assert plan.stride <= probes.STAGE_BYTES
+    assert plan.lane_boxes * plan.box_lanes >= lanes
+    assert (plan.lane_boxes - 1) * plan.box_lanes < lanes
+    assert plan.n_boxes == sum(-(-p[4] // plan.box_rows) * plan.lane_boxes
+                               for p in pieces)
+    assert plan.smem() <= chw.SMEM_BYTES
+    assert plan.box_lanes % probes.LINE_LANES == 0
+    if plan.stages == 1:  # one box a block
+        assert plan.blocks == plan.n_boxes
+    else:
+        assert probes.SMS < plan.blocks <= plan.n_boxes
+        per = -(-plan.n_boxes // plan.blocks)
+        assert (per - 1) * plan.blocks < plan.n_boxes
+
+
+def test_unaligned_copies_keep_the_cp_async_route():
+    """A tensor map needs 16-byte strides and a 16-byte aligned base: rows
+    of an odd number of elements, on either side, or a source that starts
+    off the grid take the cp.async route."""
+    x = torch.zeros((2, 20, 336), dtype=torch.bfloat16)
+    assert probes.staged_route(x, (2, 25, 336)) == 'tma'
+    assert probes.staged_route(x, (2, 25, 341)) == 'cp.async'
+    odd = torch.zeros((2, 20, 333), dtype=torch.bfloat16)
+    assert probes.staged_route(odd, (2, 25, 336)) == 'cp.async'
+    shifted = torch.zeros(2 * 20 * 336 + 1, dtype=torch.bfloat16)[1:]
+    assert probes.staged_route(shifted.view(2, 20, 336),
+                               (2, 25, 336)) == 'cp.async'
 
 
 def test_mm_layout_fits_every_case():
