@@ -8,14 +8,18 @@ Phases, each of which must pass:
 1. device: the card's name and power limit, torch and CUDA versions.  There
    is no CPU path: without a CUDA device the run fails.
 2. build: compile the CUDA kernels from ``shiftnet_tpu_torch/csrc`` (the
-   nine model kernels and the four probe kernels) into one library (one
+   nine model kernels, the four probe kernels and the parameter probe)
+   into one library (one
    nvcc per source, in parallel), then count instructions in its SASS
    (``cuobjdump -sass``): every instantiation of the ``cab_front``,
    ``conv``, ``conv_cat``, ``naf_gate``, ``naf_rep``, ``naf_back`` and
    ``up_skip`` kernels must hold tensor-core (``HMMA``) instructions,
-   cab_back's 16-byte route 128-bit global loads (``LDG.E.128``), and the
-   staged copy's TMA kernel TMA loads and stores (``UTMALDG``,
-   ``UTMASTG``).
+   cab_back's and the direct copy's 16-byte routes 128-bit global loads
+   (``LDG.E.128``), the staged copy's TMA kernel TMA loads and stores
+   (``UTMALDG``, ``UTMASTG``), and every ``mm_loop`` instantiation
+   warpgroup products and TMA loads (``HGMMA``, ``UTMALDG``) and no
+   ``mma.sync`` (``HMMA``); ``ptxas -v`` must report no spill and no
+   serialized wgmma in ``mm_loop`` and the direct copy.
 3. kernels: each kernel against its plain PyTorch version on seeded inputs
    at the shapes of the 720p deblur_plus window (T = 4), for conv_cat also
    the 480x848 denoise window, and at the small variants' widths (the
@@ -53,9 +57,14 @@ Phases, each of which must pass:
    then each of the ten probe kernels of ``ops/probes.py`` against its
    plain version at the JAX tool's largest shape (the permutation also at
    the port's shift_round and decoder_level1 shapes), copies bit for bit
-   (every staged copy on the TMA route) and ``mm_loop`` within one bf16
-   ulp of its largest output, with median times, bounds and the PyTorch
-   call that computes the same function.
+   (every staged copy on the TMA route, every direct copy in 16-byte
+   units but the one at a lane offset) and ``mm_loop`` within one bf16
+   ulp of its largest output (its route: the wgmma tile of ``MM_TILES``),
+   with median times, bounds and the PyTorch call that computes the same
+   function.
+8. bench: the port's bench entry point (``shiftnet_tpu_torch/tools/
+   bench.py``, deblur_plus 720p) with one timed window; its JSON line must
+   parse.
 
 The line before the last is a JSON object with each kernel's launches on
 every driven path, its error, its times and its bound; the last line is
@@ -211,11 +220,26 @@ SASS_CHECKS = (
     ('cab_back 16-byte route', ('cab_back_kernel', 'uint4'), 'LDG.E.128'),
     ('staged copy on the TMA', ('block_copy_tma_kernel',), 'UTMALDG'),
     ('staged copy on the TMA', ('block_copy_tma_kernel',), 'UTMASTG'),
+    ('mm_loop on wgmma', ('mm_loop_kernel',), 'HGMMA'),
+    ('mm_loop on wgmma', ('mm_loop_kernel',), 'UTMALDG'),
+    ('direct copy 16-byte route', ('block_copy_kernel', 'uint4'),
+     'LDG.E.128'),
 )
+# (label, what names the functions, the SASS opcode none may hold).
+SASS_ABSENT = (
+    ('mm_loop on wgmma', ('mm_loop_kernel',), 'HMMA'),
+)
+# Kernels that must not spill registers (ptxas -v, _build.ptxas_report).
+NO_SPILL = ('mm_loop_kernel', 'block_copy_kernel')
+# The wgmma tile (BM x BN) mm_loop must launch at each (m, k, n) of the
+# probes phase: the tile ops/probes.mm_plan picks, fixed here so that a
+# change of the planner shows.
+MM_TILES = {(8192, 512, 512): '128x64', (10240, 216, 24): '128x24',
+            (1440000, 120, 160): '128x160', (1296000, 96, 128): '128x64'}
 
 
-def _sass_counts(lib):
-    """[(label, opcode, [count in each instantiation])] for SASS_CHECKS,
+def _sass_counts(lib, checks):
+    """[(label, opcode, [count in each instantiation])] for ``checks``,
     from the SASS of the built library (``cuobjdump -sass``); an opcode
     counts with its modifiers (``LDG.E.128.CONSTANT`` is an
     ``LDG.E.128``)."""
@@ -230,7 +254,7 @@ def _sass_counts(lib):
         elif functions:
             functions[-1][1].append(line)
     out = []
-    for label, keys, op in SASS_CHECKS:
+    for label, keys, op in checks:
         pat = re.compile(re.escape(op).replace(r'\.', r'[.\w]*\.') + r'\b')
         out.append((label, op, [
             sum(1 for ln in body if pat.search(ln))
@@ -245,13 +269,30 @@ def build_phase():
     _build.library()
     dt = time.perf_counter() - t0
     print(f'build: {path.name} ready in {dt:.2f} s', flush=True)
-    for label, op, counts in _sass_counts(path):
+    for label, op, counts in _sass_counts(path, SASS_CHECKS):
         print(f'build: {label}: {len(counts)} instantiations, {op} '
               f'instructions in SASS {sum(counts)} (each {counts})',
               flush=True)
         if not counts or min(counts) == 0:
             raise AssertionError(f'{label}: an instantiation has no {op} '
                                  'instruction')
+    for label, op, counts in _sass_counts(path, SASS_ABSENT):
+        print(f'build: {label}: {len(counts)} instantiations, {op} '
+              f'instructions in SASS {sum(counts)} (none allowed)',
+              flush=True)
+        if not counts or max(counts) != 0:
+            raise AssertionError(f'{label}: an instantiation holds {op}')
+    report = _build.ptxas_report()
+    spills = {k: v for k, v in report.items() if v['spill'] or v['serial']}
+    for key in NO_SPILL:
+        regs = sorted({v['registers'] for k, v in report.items() if key in k})
+        print(f'build: ptxas -v: {key}: {sum(key in k for k in report)} '
+              f'functions, registers {regs}', flush=True)
+    print(f'build: ptxas -v: {len(report)} functions, spills or serialized '
+          f'wgmma in {sorted(spills) or "none"}', flush=True)
+    bad = [k for k in spills if any(key in k for key in NO_SPILL)]
+    if bad:
+        raise AssertionError(f'spilled or serialized: {bad}')
     return dt
 
 
@@ -1052,7 +1093,8 @@ class ProbeCase:
     ``region`` picks what is compared (the written part of a copy);
     ``nbytes`` and ``ops`` are what the function must move and compute;
     ``library`` is the PyTorch call(s) computing it, or None; ``route``:
-    (the route the kernel takes, the route it must take), or None."""
+    (the wrapper, the route it must launch, as ``probes.ROUTES`` names
+    it), or None."""
 
     def __init__(self, kernel, plain, library, nbytes, ops=0, region=None,
                  exact=True, route=None):
@@ -1084,12 +1126,18 @@ def _probe_cases():
                 lambda: probes.mm_loop_plain(a, b, iters),
                 lambda: [torch.matmul(a, b) for _ in range(iters)],
                 2 * (m * k + k * n + m * n), 2 * m * k * n * iters,
-                exact=False)
+                exact=False,
+                route=('mm_loop', f'wgmma {MM_TILES[(m, k, n)]}'))
         cases.append(('mm_loop', f'{label} x{iters}', mm))
 
     def copy_case(x, out_shape, pieces, lanes, staged, library, tile=None,
                   **kw):
         nbytes = 2 * sum(p[4] for p in pieces) * lanes * x.element_size()
+        if staged:
+            route = ('block_copy_staged', 'tma')
+        else:  # the direct copy's unit: 16 bytes unless a lane offset
+            route = ('block_copy', 'element' if kw.get('src_lane', 0) % 8
+                     else 'vector')
         if staged:
             def kernel():
                 return probes.block_copy_staged(x, out_shape, pieces, lanes,
@@ -1103,8 +1151,7 @@ def _probe_cases():
                                             **kw),
             library, nbytes,
             region=lambda out: probes.written(out, pieces, lanes),
-            route=((probes.staged_route(x, out_shape), 'tma') if staged
-                   else None))
+            route=route)
 
     def copy_x2(t=microbench.T, h=microbench.H, w=microbench.W,
                 c=microbench.C):
@@ -1195,6 +1242,7 @@ def probe_phase(card):
     kernel against its plain version.  Returns ({probe row: record},
     {probe row: launches in the drive})."""
     import torch
+    from shiftnet_tpu_torch.ops import probes
     from shiftnet_tpu_torch.tools.microbench_mm import MM_TOL, mm_err
     from shiftnet_tpu_torch.tools.timing import median_ms
     launches = _probe_drive()
@@ -1203,6 +1251,7 @@ def probe_phase(card):
     rec, failed = {}, []
     for name, label, make in _probe_cases():
         case = make()
+        probes.ROUTES.clear()
         with torch.inference_mode():
             got, want = (case.region(case.kernel()),
                          case.region(case.plain()))
@@ -1215,9 +1264,10 @@ def probe_phase(card):
                 ok = err <= MM_TOL
             del got, want
             route = ''
-            if case.route:
-                route = f' route {case.route[0]}'
-                ok &= case.route[0] == case.route[1]
+            if case.route:  # the route of the launch compared above
+                took = probes.ROUTES.get(case.route[0])
+                route = f' route {took}'
+                ok &= took == case.route[1]
             ms = median_ms(case.kernel)
             pms = median_ms(case.plain)
             lms = None if case.library is None else median_ms(case.library)
@@ -1248,6 +1298,26 @@ def probe_phase(card):
     return rec, launches
 
 
+def bench_phase():
+    """The port's bench entry point (``shiftnet_tpu_torch/tools/bench.py``)
+    with one timed window: its JSON line must parse, with a finite fps."""
+    import contextlib
+    import io
+    from shiftnet_tpu_torch.tools import bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(['--windows', '1'])
+    line = buf.getvalue().strip().splitlines()[-1]
+    print(f'bench: {line}', flush=True)
+    rec = json.loads(line)
+    if rc != 0 or not all(k in rec for k in ('metric', 'value', 'unit',
+                                             'vs_baseline')):
+        raise AssertionError(f'bench: rc {rc}, line {line}')
+    if not (np.isfinite(rec['value']) and rec['value'] > 0):
+        raise AssertionError(f'bench: fps {rec["value"]}')
+    return rec
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -1260,6 +1330,9 @@ def main():
         launches = deblur_phase(card, logs)
         launches.update(denoise_phase(card, logs))
         launches.update(small_phase(card, logs))
+    t0 = time.perf_counter()
+    bench_phase()
+    print(f'bench: phase took {time.perf_counter() - t0:.1f} s', flush=True)
     kernels = []
     for name, (src, repl, also, counter, main_path) in KERNELS.items():
         r = rec[name]

@@ -19,9 +19,23 @@
 // What bounds them: device memory, each piece read once and written once,
 // 4 bytes an element at 3.35 TB/s.
 //
-// Direct design.  One grid row per piece; threads walk the piece with
-// neighbouring threads on neighbouring addresses, 16 bytes a thread when the
-// source and destination rows are 16-byte aligned, 2 bytes a thread when not.
+// Direct design (block_copy_kernel).  One grid row per piece; a piece is
+// rows x per_row units, 16 bytes each (8 lanes) where the wrapper's route
+// is `vector` (every row of both sides on the 16-byte grid), else single
+// elements.  Thread i of block b takes units (j * blocks + b) * threads +
+// i, j < kPer, as one sweep of a grid-stride loop each, and issues all its
+// loads before its first store, so it waits out one memory round trip, not
+// one for each unit; rows come from a 32-bit division.  The wrapper sizes
+// the grid from the units (ops/probes.py, copy_grid): one unit a thread
+// where a wave of blocks holds the copy (the small probe copies, at the
+// launch's latency: the batch is a template constant, so such a thread
+// runs no loop), else kCopyUnroll units a thread on as many blocks as
+// that takes.  (Two other grids ran the (12, 320, 72320) permutation
+// slower than this one in tuning: a persistent wave of blocks
+// striding over the pieces, and blocks that each copy one contiguous
+// span.)  The piece table is a kernel parameter: 96 bytes for up to
+// kFewPieces pieces, else the staged copies' 3 KB table (a 3 KB parameter
+// costs a 40-row copy 0.02-0.26 us, tools/probe_launch.py).
 //
 // Staged design, on the TMA (block_copy_tma_kernel; tma.cuh).  The pieces
 // are cut into boxes of box_rows x box_lanes elements (ops/probes.tma_plan,
@@ -80,42 +94,74 @@ namespace shiftnet {
 
 constexpr int kMaxPieces = 128;  // ops/probes.py, MAX_PIECES
 constexpr int kCopyThreads = 256;
+constexpr int kCopyUnroll = 4;  // ops/probes.py, COPY_UNROLL
+constexpr int kFewPieces = 4;   // FEW_PIECES
 constexpr int kSlotBytes = 16384;
 constexpr int kSegMax = 8176;  // lanes of a chunk: 2 * 8176 + 16 <= a slot
 
-// (src, dst, rows) of each piece, in elements: a kernel parameter.
-struct Pieces {
-  long long v[3 * kMaxPieces];
+// (src, dst, rows) of up to kN pieces, in elements: a kernel parameter.
+template <int kN>
+struct PieceTable {
+  long long v[3 * kN];
 };
+using Pieces = PieceTable<kMaxPieces>;
+using FewPieces = PieceTable<kFewPieces>;
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
-}
-
+// U: the unit, uint4 (8 lanes) or uint16_t (one); rows of per_row units.
+// kPer: units a thread, one batch.  kN: the pieces the table holds.
+template <typename U, int kPer, int kN>
 __global__ void __launch_bounds__(kCopyThreads)
     block_copy_kernel(const uint16_t* __restrict__ x,
-                      uint16_t* __restrict__ out, Pieces p, int lanes,
-                      long long src_ld, long long dst_ld) {
+                      uint16_t* __restrict__ out,
+                      const __grid_constant__ PieceTable<kN> p,
+                      uint32_t per_row, long long src_ld, long long dst_ld) {
+  constexpr int kLanes = sizeof(U) / 2;
+  // The first piece reads its fields straight from the parameter (the
+  // shortest path to the first load of a one-piece copy); others index it
+  // in place (__grid_constant__: without it, indexing copied the 96-byte
+  // table to a stack frame, ptxas -v).
   const int pi = blockIdx.y;
-  const uint16_t* s = x + p.v[3 * pi];
-  uint16_t* d = out + p.v[3 * pi + 1];
-  const long long rows = p.v[3 * pi + 2];
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lanes % 8 == 0 && src_ld % 8 == 0 && dst_ld % 8 == 0 && aligned16(s) &&
-      aligned16(d)) {
-    const long long per_row = lanes / 8;
-    for (long long i = i0; i < rows * per_row; i += step) {
-      const long long r = i / per_row, c = (i - r * per_row) * 8;
-      *reinterpret_cast<uint4*>(d + r * dst_ld + c) =
-          *reinterpret_cast<const uint4*>(s + r * src_ld + c);
-    }
-  } else {
-    for (long long i = i0; i < rows * lanes; i += step) {
-      const long long r = i / lanes, c = i - r * lanes;
-      d[r * dst_ld + c] = s[r * src_ld + c];
+  long long so = p.v[0], dso = p.v[1], rows = p.v[2];
+  if (pi) {
+    so = p.v[3 * pi];
+    dso = p.v[3 * pi + 1];
+    rows = p.v[3 * pi + 2];
+  }
+  const uint32_t units = (uint32_t)rows * per_row;  // < 2^31 (wrapper)
+  const uint32_t sweep = gridDim.x * blockDim.x;
+  const uint32_t u0 = blockIdx.x * blockDim.x + threadIdx.x;
+  U v[kPer];
+  long long d[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const uint32_t u = u0 + j * sweep;
+    if (u < units) {
+      const uint32_t r = u / per_row;
+      const long long c = (long long)(u - r * per_row) * kLanes;
+      v[j] = *reinterpret_cast<const U*>(x + so + r * src_ld + c);
+      d[j] = dso + r * dst_ld + c;
     }
   }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (u0 + j * sweep < units) *reinterpret_cast<U*>(out + d[j]) = v[j];
+}
+
+// The parameter probe (tools/probe_launch.py): `units` 16-byte units
+// copied in order, one a thread, without and with the 3 KB Pieces table as
+// an unused parameter.
+__global__ void __launch_bounds__(kCopyThreads)
+    param_probe_kernel(const uint4* __restrict__ x, uint4* __restrict__ out,
+                       uint32_t units) {
+  const uint32_t u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u < units) out[u] = x[u];
+}
+__global__ void __launch_bounds__(kCopyThreads)
+    param_probe_pieces_kernel(const uint4* __restrict__ x,
+                              uint4* __restrict__ out, uint32_t units,
+                              Pieces) {
+  const uint32_t u = blockIdx.x * blockDim.x + threadIdx.x;
+  if (u < units) out[u] = x[u];
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -356,26 +402,76 @@ static int copy_pieces(const long long* table, int n_pieces, Pieces* p) {
   return 1;
 }
 
+// The direct copy's launch, with the table as a PieceTable<kN>.
+template <int kN>
+static void launch_block_copy(const uint16_t* x, uint16_t* out,
+                              const long long* table, int n_pieces,
+                              uint32_t per_row, long long src_ld,
+                              long long dst_ld, bool vector, int blocks,
+                              int per, cudaStream_t st) {
+  PieceTable<kN> p = {};
+  for (int i = 0; i < 3 * n_pieces; ++i) p.v[i] = table[i];
+  const dim3 grid(blocks, n_pieces);
+#define SHIFTNET_COPY(U, PER)                                   \
+  block_copy_kernel<U, PER, kN><<<grid, kCopyThreads, 0, st>>>( \
+      x, out, p, per_row, src_ld, dst_ld)
+  if (vector && per == 1)
+    SHIFTNET_COPY(uint4, 1);
+  else if (vector)
+    SHIFTNET_COPY(uint4, kCopyUnroll);
+  else if (per == 1)
+    SHIFTNET_COPY(uint16_t, 1);
+  else
+    SHIFTNET_COPY(uint16_t, kCopyUnroll);
+#undef SHIFTNET_COPY
+}
+
 }  // namespace shiftnet
 
-// x, out: bf16; table: n_pieces x (src, dst, rows) in elements.
+// x, out: bf16; table: n_pieces x (src, dst, rows) in elements.  route
+// (ops/probes.py, copy_route): 0 single elements, 1 16-byte units (every
+// row of both sides on the 16-byte grid, lanes a multiple of 8); blocks a
+// piece and units a thread (per, 1 or kCopyUnroll) from copy_grid.
 extern "C" int shiftnet_block_copy(const void* x, void* out,
                                    const long long* table, int n_pieces,
                                    int lanes, long long src_ld,
-                                   long long dst_ld, void* stream) {
+                                   long long dst_ld, int route, int blocks,
+                                   int per, void* stream) {
   using namespace shiftnet;
-  Pieces p;
-  if (!copy_pieces(table, n_pieces, &p)) return (int)cudaErrorInvalidValue;
-  long long most = 0;
-  for (int i = 0; i < n_pieces; ++i)
-    most = std::max(most, table[3 * i + 2] * lanes);
-  const long long per_block = (long long)kCopyThreads * 8 * 4;
-  long long blocks = (most + per_block - 1) / per_block;
-  blocks = std::max(1LL, std::min(blocks, 65535LL));
-  block_copy_kernel<<<dim3((unsigned)blocks, n_pieces), kCopyThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), p, lanes,
-      src_ld, dst_ld);
+  if (n_pieces < 1 || n_pieces > kMaxPieces || lanes < 1 || blocks < 1 ||
+      (per != 1 && per != kCopyUnroll) || route < 0 || route > 1 ||
+      (route && lanes % 8))
+    return (int)cudaErrorInvalidValue;
+  const uint32_t per_row = route ? lanes / 8 : lanes;
+  const uint16_t* xs = static_cast<const uint16_t*>(x);
+  uint16_t* o = static_cast<uint16_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_pieces <= kFewPieces)
+    launch_block_copy<kFewPieces>(xs, o, table, n_pieces, per_row, src_ld,
+                                  dst_ld, route == 1, blocks, per, st);
+  else
+    launch_block_copy<kMaxPieces>(xs, o, table, n_pieces, per_row, src_ld,
+                                  dst_ld, route == 1, blocks, per, st);
+  return (int)cudaGetLastError();
+}
+
+// The parameter probe: `units` 16-byte units from x to out (both 16-byte
+// aligned), with the 3 KB Pieces parameter (big) or without.
+extern "C" int shiftnet_param_probe(int big, const void* x, void* out,
+                                    int units, void* stream) {
+  using namespace shiftnet;
+  if (units < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = (units + kCopyThreads - 1) / kCopyThreads;
+  const uint4* xs = static_cast<const uint4*>(x);
+  uint4* o = static_cast<uint4*>(out);
+  if (big) {
+    Pieces p = {};
+    param_probe_pieces_kernel<<<blocks, kCopyThreads, 0, st>>>(xs, o, units,
+                                                               p);
+  } else {
+    param_probe_kernel<<<blocks, kCopyThreads, 0, st>>>(xs, o, units);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -459,7 +555,8 @@ extern "C" int shiftnet_block_copy_tma(const void* x, void* out,
   const uint64_t sdims[2] = {(uint64_t)src_lanes, (uint64_t)src_rows};
   const uint64_t sstride[1] = {2ULL * src_lanes};
   const uint32_t sbox[2] = {(uint32_t)a.load_lanes, (uint32_t)a.box_rows};
-  int err = tma::encode_tiled(&a.src, x, 2, sdims, sstride, sbox);
+  int err = tma::encode_tiled(&a.src, x, 2, sdims, sstride, sbox,
+                              CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return 10000 + err;
   std::vector<CUtensorMap> mem(maps ? n_runs : 0);
   for (int r = 0; r < n_runs; ++r) {
@@ -470,7 +567,7 @@ extern "C" int shiftnet_block_copy_tma(const void* x, void* out,
     const uint32_t box[3] = {(uint32_t)a.box_lanes, (uint32_t)a.box_rows, 1};
     err = tma::encode_tiled(maps ? &mem[r] : &a.dst[r],
                             static_cast<uint16_t*>(out) + run[0], 3, dims,
-                            strides, box);
+                            strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (err) return 10000 + err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -7,184 +7,196 @@
 //
 // What bounds it: the tensor cores, 2 * M * K * N * iters operations at
 // 989 TFLOP/s in bf16 (the panels are read from device memory once, which
-// the iterations amortise).  The kernel measures what mma.sync reaches at
-// the model's narrow shapes; wgmma, the only way to the full rate, is later
-// work.
+// the iterations amortise), and below N = 64 the shared-memory reads of
+// wgmma's operands (wgmma.cuh).
 //
-// Design.  Each block owns a BM x BN tile of the output: BM = 32 * WM rows
-// and BN = 8 * NF * WN columns for WM x WN warps, each warp 32 rows by
-// 8 * NF columns (two m16 tiles by NF n8 tiles, 8 * NF float32 sums a
-// thread).  The block loads its A panel [BM][Kp] and B panel [Kp][BN] into
-// shared memory once, zero-padded (K to Kp, a multiple of 16; rows past M
-// and columns past N), then loops iters times over Kp in steps of 16:
-// ldmatrix.x4 for each A fragment, ldmatrix.x2.trans for each B fragment
-// (B is stored k-major), mma.sync.m16n8k16 bf16 -> f32.  Every row of both
-// panels is an odd number of 16-byte units long, so the eight row addresses
-// of one ldmatrix fall in distinct bank groups.  The ldmatrix asm is
-// volatile: each iteration reads its operands from shared memory again, as
-// the JAX kernel reads VMEM, rather than keeping them in registers.
+// Design.  Each block owns a BM x BN tile of the output, BM = 64 rows for
+// each of its one or two warpgroups, BN one of the wgmma widths the
+// planner uses (ops/probes.py, mm_plan, which also computes every byte
+// offset below).  Both panels stay in shared memory for all iterations,
+// as they lie in memory: A as [chunk][BM][64 k], K-major, B as
+// [chunk][64-column box][64 k][64 n], N-major; B is never transposed, the
+// transpose bit of wgmma reads it as it is.  Thread 0 issues the TMA loads
+// of the whole panels, K-chunk by K-chunk (64 k: a 128-byte swizzle row),
+// each chunk on its own mbarrier, with the tensor maps' 128-byte swizzle;
+// the maps' bounds fill zeros past K, M and N, so the kernel has no
+// padding code.  A box wholly past N is not loaded (its columns are never
+// stored).  Each warpgroup waits for a chunk only in the first iteration,
+// then issues its wgmma.mma_async m64nBNk16 products, up to 4 a chunk
+// (ceil(K / 16) in all, not Kp / 16), committed a chunk a group with one
+// group left in flight, into BN / 2 float32 registers a thread; it waits
+// for all only before the epilogue, which rounds each sum to bf16 once and
+// stores pairs of columns, masked at M and N.  No stage ring: the operands
+// are resident by definition.
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace shiftnet {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
+constexpr int kMmChunk = 64;      // k a chunk: one 128-byte swizzle row
+constexpr int kMmAtom = 8192;     // one B box: 64 k rows of 128 bytes
+constexpr int kMmSmem = 232448;   // the most a block may have
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
+// Byte offsets of the panels from the 1024-byte aligned base of shared
+// memory and the descriptors' fields, from ops/probes.py, MmPlan.
+struct MmArgs {
+  __nv_bfloat16* out;
+  int M, N, iters, chunks, ksteps, atoms;
+  uint32_t a_chunk, b_chunk, b_off, bar_off, a_wg, a_k, b_k, a_sbo, b_lbo,
+      b_sbo;
+};
 
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Row lengths of the panels in elements (ops/probes.py, mm_smem).
-__host__ __device__ inline int mm_lda(int Kp) { return Kp + 8; }
-__host__ __device__ inline int mm_ldb(int BN) {
-  return BN + ((BN / 8) % 2 == 0 ? 8 : 16);
-}
-
-// rows x cols of src (row length ld_src, valid rows_ok x cols_ok) into
-// shared memory (row length ld_dst), zero outside; 16-byte loads where a
-// chunk of 8 lies inside and the source rows are 16-byte aligned.
-__device__ __forceinline__ void load_panel(__nv_bfloat16* dst, int ld_dst,
-                                           const __nv_bfloat16* src,
-                                           long long ld_src, int rows,
-                                           int cols, int rows_ok,
-                                           int cols_ok) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const bool vec = ld_src % 8 == 0 &&
-                   ((uintptr_t)src & 15) == 0;
-  const int chunks = cols / 8;  // cols is a multiple of 8
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    __nv_bfloat16* d = dst + (size_t)r * ld_dst + c;
-    const __nv_bfloat16* s = src + r * ld_src + c;
-    if (vec && r < rows_ok && c + 8 <= cols_ok) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = (r < rows_ok && c + j < cols_ok) ? s[j] : zero;
-    }
+template <int BN, int WGS>
+__global__ void __launch_bounds__(128 * WGS)
+    mm_loop_kernel(const __grid_constant__ CUtensorMap a_map,
+                   const __grid_constant__ CUtensorMap b_map,
+                   const MmArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (tma::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t a_s = base, b_s = base + p.b_off, bars = base + p.bar_off;
+  const int m0 = blockIdx.y * 64 * WGS, n0 = blockIdx.x * BN;
+  const int atoms = min(p.atoms, (p.N - n0 + 63) / 64);  // inside N
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < p.chunks; ++c) tma::mbar_init(bars + 8 * c, 1);
+    tma::mbar_fence_init();
   }
-}
-
-template <int NF>
-__global__ void __launch_bounds__(256)
-    mm_loop_kernel(const __nv_bfloat16* __restrict__ a,
-                   const __nv_bfloat16* __restrict__ b,
-                   __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                   int Kp, int iters, int WN) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int WM = blockDim.x / 32 / WN;
-  const int BM = 32 * WM, BN = 8 * NF * WN;
-  const int lda = mm_lda(Kp), ldb = mm_ldb(BN);
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + (size_t)BM * lda;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  load_panel(As, lda, a + (size_t)m0 * K, K, BM, Kp, M - m0, K);
-  load_panel(Bs, ldb, b + n0, N, Kp, BN, K, N - n0);
   __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp / WN, wc = warp - wr * WN;
-  const __nv_bfloat16* a_frag = As + (size_t)(wr * 32 + lane % 16) * lda +
-                                (lane / 16) * 8;
-  const __nv_bfloat16* b_frag = Bs + (size_t)(lane % 16) * ldb + wc * 8 * NF;
-  float acc[2][NF][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NF; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-
-  for (int it = 0; it < iters; ++it) {
-    for (int k0 = 0; k0 < Kp; k0 += 16) {
-      uint32_t af[2][4], bf[NF][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldmatrix_x4(af[mi], a_frag + (size_t)mi * 16 * lda + k0);
-#pragma unroll
-      for (int ni = 0; ni < NF; ++ni)
-        ldmatrix_x2_trans(bf[ni], b_frag + (size_t)k0 * ldb + ni * 8);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NF; ++ni) mma_bf16(acc[mi][ni], af[mi], bf[ni]);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < p.chunks; ++c) {
+      const uint32_t bar = bars + 8 * c;
+      tma::mbar_expect_tx(bar, p.a_chunk + atoms * kMmAtom);
+      tma::tma_load_2d(a_s + c * p.a_chunk, &a_map, kMmChunk * c, m0, bar);
+      for (int j = 0; j < atoms; ++j)
+        tma::tma_load_2d(b_s + c * p.b_chunk + j * kMmAtom, &b_map,
+                         n0 + 64 * j, kMmChunk * c, bar);
     }
   }
+  __syncwarp();
 
-  // Accumulator layout of m16n8: c0, c1 at (lane / 4, 2 * (lane % 4) + j),
-  // c2, c3 eight rows below.
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  float acc[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const uint64_t da0 = wgmma::desc(a_s + wg * p.a_wg, 16, p.a_sbo);
+  const uint64_t db0 = wgmma::desc(b_s, p.b_lbo, p.b_sbo);
+  for (int it = 0; it < p.iters; ++it) {
+    for (int c = 0; c < p.chunks; ++c) {
+      if (it == 0) tma::mbar_wait(bars + 8 * c, 0);
+      const int steps = min(4, p.ksteps - 4 * c);
+      wgmma::fence_operands<BN / 2>(acc);
+      wgmma::fence();
 #pragma unroll
-    for (int ni = 0; ni < NF; ++ni)
+      for (int s = 0; s < 4; ++s) {
+        if (s < steps)  // descriptors advance by the offset >> 4
+          wgmma::mma_m64k16<BN>(
+              acc, da0 + ((c * p.a_chunk + s * p.a_k) >> 4),
+              db0 + ((c * p.b_chunk + s * p.b_k) >> 4));
+      }
+      wgmma::commit();
+      wgmma::wait<1>();
+      wgmma::fence_operands<BN / 2>(acc);
+    }
+  }
+  wgmma::wait<0>();
+  wgmma::fence_operands<BN / 2>(acc);
+
+  const int row0 = m0 + 64 * wg;
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = m0 + wr * 32 + mi * 16 + h * 8 + lane / 4;
-          const int c = n0 + wc * 8 * NF + ni * 8 + 2 * (lane % 4) + j;
-          if (r < M && c < N)
-            out[(size_t)r * N + c] = __float2bfloat16(acc[mi][ni][2 * h + j]);
-        }
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int r = row0 + wgmma::acc_row(i, t);
+    const int c = n0 + wgmma::acc_col(i, t);  // even; N is a multiple of 8
+    if (r < p.M && c < p.N)
+      *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)r * p.N + c) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
 }
 
-template <int NF>
-static int launch_mm_loop(const void* a, const void* b, void* out, int M,
-                          int K, int N, int iters, int WM, int WN,
-                          cudaStream_t stream) {
-  const int Kp = (K + 15) / 16 * 16;
-  const int BM = 32 * WM, BN = 8 * NF * WN;
-  const size_t smem =
-      2 * ((size_t)BM * mm_lda(Kp) + (size_t)Kp * mm_ldb(BN));
-  cudaFuncSetAttribute(mm_loop_kernel<NF>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  mm_loop_kernel<NF><<<grid, 32 * WM * WN, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out),
-      M, K, N, Kp, iters, WN);
+template <int BN, int WGS>
+static int launch_mm_loop(const CUtensorMap& am, const CUtensorMap& bm,
+                          const MmArgs& p, int smem, cudaStream_t st) {
+  static const bool sized = [] {  // dynamic shared memory past 48 KB
+    cudaFuncSetAttribute(mm_loop_kernel<BN, WGS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMmSmem);
+    return true;
+  }();
+  (void)sized;
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + 64 * WGS - 1) / (64 * WGS));
+  mm_loop_kernel<BN, WGS><<<grid, 128 * WGS, smem, st>>>(am, bm, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace shiftnet
 
-// a: (M, K), b: (K, N), out: (M, N), all bf16 and contiguous; NF in 1..4
-// n8 tiles a warp, WM x WN warps a block (WM * WN <= 8).
-extern "C" int shiftnet_mm_loop(const void* a, const void* b, void* out, int M,
-                                int K, int N, int iters, int NF, int WM,
-                                int WN, void* stream) {
+// a: (M, K), b: (K, N), out: (M, N), all bf16, contiguous and 16-byte
+// aligned, K and N multiples of 8.  plan (ops/probes.py, MmPlan.args): BM,
+// BN, chunks, k-steps, boxes of B a chunk, then in bytes the A chunk, the
+// B chunk, B's offset, the barriers' offset, the shared memory of a block,
+// a warpgroup's rows of A, a k-step of A and of B, A's SBO, B's LBO and
+// SBO.  Returns the cudaError_t of the launch, or 10000 + the CUresult of
+// a map the CUDA driver refused to encode.
+extern "C" int shiftnet_mm_loop(const void* a, const void* b, void* out,
+                                int M, int K, int N, int iters,
+                                const long long* plan, void* stream) {
   using namespace shiftnet;
+  const int bm = (int)plan[0], bn = (int)plan[1];
+  MmArgs p;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.M = M;
+  p.N = N;
+  p.iters = iters;
+  p.chunks = (int)plan[2];
+  p.ksteps = (int)plan[3];
+  p.atoms = (int)plan[4];
+  p.a_chunk = (uint32_t)plan[5];
+  p.b_chunk = (uint32_t)plan[6];
+  p.b_off = (uint32_t)plan[7];
+  p.bar_off = (uint32_t)plan[8];
+  const long long smem = plan[9];
+  p.a_wg = (uint32_t)plan[10];
+  p.a_k = (uint32_t)plan[11];
+  p.b_k = (uint32_t)plan[12];
+  p.a_sbo = (uint32_t)plan[13];
+  p.b_lbo = (uint32_t)plan[14];
+  p.b_sbo = (uint32_t)plan[15];
+  if (M < 1 || K < 1 || N < 1 || K % 8 || N % 8 || iters < 1 ||
+      (bm != 64 && bm != 128) || p.chunks != (K + kMmChunk - 1) / kMmChunk ||
+      p.ksteps != (K + 15) / 16 || p.atoms != (bn + 63) / 64 ||
+      p.a_chunk != 128u * bm || p.b_chunk != (uint32_t)p.atoms * kMmAtom ||
+      p.b_off % 1024 || p.bar_off < p.b_off + p.chunks * p.b_chunk ||
+      smem > kMmSmem || smem < 1024 + p.bar_off + 8 * p.chunks ||
+      ((uintptr_t)a & 15) || ((uintptr_t)b & 15))
+    return (int)cudaErrorInvalidValue;
+  // A: (K, M) innermost first, a box of 64 k by BM rows; B: (N, K), a box
+  // of 64 n by 64 k; both with the 128-byte swizzle wgmma reads.
+  CUtensorMap am, bmap;
+  const uint64_t adims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t astride[1] = {2ULL * K};
+  const uint32_t abox[2] = {kMmChunk, (uint32_t)bm};
+  int err = tma::encode_tiled(&am, a, 2, adims, astride, abox,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return 10000 + err;
+  const uint64_t bdims[2] = {(uint64_t)N, (uint64_t)K};
+  const uint64_t bstride[1] = {2ULL * N};
+  const uint32_t bbox[2] = {64, kMmChunk};
+  err = tma::encode_tiled(&bmap, b, 2, bdims, bstride, bbox,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return 10000 + err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (WM < 1 || WN < 1 || WM * WN > 8) return (int)cudaErrorInvalidValue;
-  switch (NF) {
-    case 1: return launch_mm_loop<1>(a, b, out, M, K, N, iters, WM, WN, st);
-    case 2: return launch_mm_loop<2>(a, b, out, M, K, N, iters, WM, WN, st);
-    case 3: return launch_mm_loop<3>(a, b, out, M, K, N, iters, WM, WN, st);
-    case 4: return launch_mm_loop<4>(a, b, out, M, K, N, iters, WM, WN, st);
+  const int s = (int)smem;
+#define SHIFTNET_MM_CASE(BN)                                              \
+  case BN:                                                                \
+    return bm == 64 ? launch_mm_loop<BN, 1>(am, bmap, p, s, st)           \
+                    : launch_mm_loop<BN, 2>(am, bmap, p, s, st);
+  switch (bn) {  // ops/probes.py, MM_WIDTHS
+    SHIFTNET_MM_CASE(24)
+    SHIFTNET_MM_CASE(32)
+    SHIFTNET_MM_CASE(64)
+    SHIFTNET_MM_CASE(96)
+    SHIFTNET_MM_CASE(128)
+    SHIFTNET_MM_CASE(160)
   }
+#undef SHIFTNET_MM_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -58,18 +58,23 @@ inline PFN_cuTensorMapEncodeTiled encoder() {
 
 // A bf16 tensor map of `rank` dimensions over `base`: dims in elements,
 // strides in bytes of dimensions 1 .. rank - 1, box in elements; no
-// interleave, no swizzle, zeros outside the tensor.  Returns the driver's
+// interleave, zeros outside the tensor, and the shared-memory swizzle
+// `swizzle` (none by default).  Under CU_TENSOR_MAP_SWIZZLE_128B a box row
+// (dimension 0) is at most 128 bytes, and the 16-byte unit u of the box's
+// row r lands at unit u ^ (r % 8) of that row, counted from a 1024-byte
+// aligned destination (wgmma.cuh reads it so).  Returns the CUDA driver's
 // CUresult (CUDA_SUCCESS is 0), or CUDA_ERROR_NOT_FOUND without the entry
 // point.
-inline int encode_tiled(CUtensorMap* map, const void* base, int rank,
-                        const uint64_t* dims, const uint64_t* strides,
-                        const uint32_t* box) {
+inline int encode_tiled(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   PFN_cuTensorMapEncodeTiled fn = encoder();
   if (!fn) return (int)CUDA_ERROR_NOT_FOUND;
   const uint32_t ones[5] = {1, 1, 1, 1, 1};
   return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                  const_cast<void*>(base), dims, strides, box, ones,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

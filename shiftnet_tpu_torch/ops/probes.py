@@ -5,7 +5,8 @@ Counterparts of the Pallas probe kernels of the JAX package's ``tools/``
 
 - ``mm_loop`` (``csrc/probe_mm.cu``): ``tools/microbench_mm.py:16``
   ``mm_loop_kernel``, the matrix-unit rate at a given product shape;
-- ``block_copy`` (``csrc/probe_copy.cu``, direct): ``tools/
+- ``block_copy`` (``csrc/probe_copy.cu``, direct, in 16-byte units where
+  ``copy_route`` says so): ``tools/
   probe_hbm_copy.py:29`` ``_copy_kernel``, ``tools/probe_copy_bw.py:45``
   ``_hbm_kernel`` and ``tools/probe_dma_align.py:64`` ``_slice_kernel``;
 - ``block_copy_staged`` (``csrc/probe_copy.cu``, through shared memory, on
@@ -17,7 +18,8 @@ Counterparts of the Pallas probe kernels of the JAX package's ``tools/``
 
 Dispatch is that of ``ops/chw``: a CUDA tensor launches the kernel or
 raises, a CPU tensor runs the plain version (``*_plain``), any other device
-raises.  Each launch adds one to ``LAUNCHES``.  Every probe takes bfloat16,
+raises.  Each launch adds one to ``LAUNCHES`` and writes the route it took
+to ``ROUTES``.  Every probe takes bfloat16,
 the type of the JAX tools.
 
 The copies work from a list of pieces ``(sf, sr, df, dr, rows)``: rows
@@ -41,10 +43,19 @@ from shiftnet_tpu_torch.ops.chw import (SM_SMEM_BYTES, SMEM_BYTES, _on_cuda,
 
 LAUNCHES = {'mm_loop': 0, 'block_copy': 0, 'block_copy_staged': 0,
             'strided_copy': 0}
+# The route of each wrapper's last launch: mm_loop's tile (``'wgmma
+# BMxBN'``), the direct copy's unit (``copy_route``), the staged copy's
+# ``staged_route``.
+ROUTES: dict[str, str] = {}
 
 SMS = 132          # streaming multiprocessors of an H100 SXM
-MAX_PIECES = 128   # csrc/probe_copy.cu, kMaxPieces: the table is a kernel
-                   # parameter
+MAX_PIECES = 128   # csrc/probe_copy.cu, kMaxPieces: the staged copies'
+                   # table is a kernel parameter
+# The direct copy (csrc/probe_copy.cu, block_copy_kernel).
+COPY_THREADS = 256   # kCopyThreads
+COPY_UNROLL = 4      # kCopyUnroll: units a thread loads before it stores
+COPY_WAVE = SMS * 2048 // COPY_THREADS  # blocks of one wave, 8 an SM
+FEW_PIECES = 4       # kFewPieces: tables this short take a 96-byte parameter
 # The TMA copy (csrc/probe_copy.cu, block_copy_tma_kernel).
 TMA_STAGES = 4       # the ring of shared-memory stages of a persistent block
 STAGE_BYTES = 24576  # a stage at most: a 40 x 256 box
@@ -80,29 +91,142 @@ def _check_bf16(name: str, *ts: torch.Tensor) -> None:
 
 # -- mm_loop ------------------------------------------------------------------
 
-def mm_smem(bm: int, kp: int, bn: int) -> int:
-    """Shared memory of one ``mm_loop`` block: the A panel [bm][kp + 8] and
-    the B panel [kp][bn + pad] in bf16, each row an odd number of 16-byte
-    units so that ``ldmatrix``'s eight row addresses hit distinct banks."""
-    return 2 * (bm * (kp + 8) + kp * (bn + (8 if (bn // 8) % 2 == 0 else 16)))
+# csrc/probe_mm.cu: the wgmma widths instantiated (BN), a K chunk (one
+# 128-byte swizzle row of bf16), a B box (64 k rows of 128 bytes).
+MM_WIDTHS = (24, 32, 64, 96, 128, 160)
+MM_CHUNK = 64
+MM_ATOM = 8192
+SWIZZLE_ATOM = 1024  # eight 128-byte rows: the span of the 128-byte swizzle
+# A block of one warpgroup keeps one chain of dependent products in flight;
+# at equal work it ran 4-18 % slower than a block of two (every tile at the
+# dense reference and both gate shapes, tools/microbench_mm.py --plans;
+# NVIDIA H100 80GB HBM3, 700 W), so its clocks count a tenth more.
+MM_ONE_GROUP = 1.1
 
 
-def mm_layout(m: int, k: int, n: int) -> tuple[int, int, int]:
-    """(nf, wm, wn) of ``mm_loop``: each warp owns 32 rows and 8 * nf
-    columns of the output, a block wm x wn warps.  The layout whose busiest
-    SM holds the fewest warp tiles, then the one with more warps a block,
-    among those whose panels fit in shared memory."""
-    kp, np8 = _cdiv(k, 16) * 16, _cdiv(n, 8) * 8
-    nf = min(4, np8 // 8)
+def swizzle128(off: int) -> int:
+    """Where the TMA's 128-byte swizzle puts the byte at ``off`` of a box
+    (from a 1024-byte aligned start): the 16-byte unit u of 128-byte row r
+    moves to unit u ^ (r % 8) of that row."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+@dataclass(frozen=True)
+class MmPlan:
+    """One ``mm_loop`` launch (``csrc/probe_mm.cu``), byte offsets from the
+    1024-byte aligned start of the block's shared memory.
+
+    A block owns a ``bm`` x ``bn`` output tile, 64 rows per warpgroup.  The
+    A panel is ``chunks`` chunks of ``bm`` rows by 64 k (``a_chunk``
+    bytes), K-major; the B panel starts at ``b_off``, ``chunks`` chunks of
+    ``atoms`` boxes of 64 k rows by 64 columns (``b_chunk`` bytes), N-major;
+    both as the TMA lands them under the 128-byte swizzle (``a_addr``,
+    ``b_addr``).  A warpgroup's rows start ``a_wg`` into a chunk; the k-th
+    16-deep step of a chunk starts ``a_k`` (A) and ``b_k`` (B) further.
+    The descriptors: A's stride byte offset ``a_sbo`` (between 8-row
+    groups), B's leading byte offset ``b_lbo`` (between 64-column boxes)
+    and stride byte offset ``b_sbo`` (between 8-k groups).  ``ksteps``
+    products of depth 16 an iteration; the chunks' barriers at
+    ``bar_off``; ``smem`` bytes with the slack that aligns the start."""
+
+    bm: int
+    bn: int
+    chunks: int
+    ksteps: int
+    atoms: int
+    a_chunk: int
+    b_chunk: int
+    b_off: int
+    bar_off: int
+    smem: int
+    a_wg: int
+    a_k: int
+    b_k: int
+    a_sbo: int
+    b_lbo: int
+    b_sbo: int
+    grid: tuple[int, int]
+
+    def args(self) -> list[int]:
+        """The kernel's plan, in the order ``shiftnet_mm_loop`` reads it."""
+        return [self.bm, self.bn, self.chunks, self.ksteps, self.atoms,
+                self.a_chunk, self.b_chunk, self.b_off, self.bar_off,
+                self.smem, self.a_wg, self.a_k, self.b_k, self.a_sbo,
+                self.b_lbo, self.b_sbo]
+
+    def a_addr(self, row: int, k: int) -> int:
+        """Byte offset of A's element (tile row, k), where the TMA puts it:
+        chunk k // 64, row ``row`` of its box."""
+        c, e = divmod(k, MM_CHUNK)
+        return c * self.a_chunk + swizzle128(128 * row + 2 * e)
+
+    def b_addr(self, k: int, col: int) -> int:
+        """Byte offset of B's element (k, tile column), where the TMA puts
+        it: chunk k // 64, box col // 64, row k % 64 of the box."""
+        c, r = divmod(k, MM_CHUNK)
+        j, e = divmod(col, 64)
+        return (self.b_off + c * self.b_chunk + j * MM_ATOM
+                + swizzle128(128 * r + 2 * e))
+
+    def a_start(self, wg: int, step: int) -> int:
+        """Start of warpgroup ``wg``'s A descriptor at k-step ``step``."""
+        c, s = divmod(step, 4)
+        return wg * self.a_wg + c * self.a_chunk + s * self.a_k
+
+    def b_start(self, step: int) -> int:
+        """Start of the B descriptor at k-step ``step``."""
+        c, s = divmod(step, 4)
+        return self.b_off + c * self.b_chunk + s * self.b_k
+
+
+def mm_tile(bm: int, bn: int, m: int, k: int, n: int) -> MmPlan:
+    """The plan of a ``bm`` x ``bn`` tile (``bm`` 64 or 128, ``bn`` one of
+    ``MM_WIDTHS``) for a (m, k) @ (k, n) product."""
+    if bm not in (64, 128) or bn not in MM_WIDTHS:
+        raise ValueError(f'mm_loop: no {bm} x {bn} tile')
+    chunks, atoms = _cdiv(k, MM_CHUNK), _cdiv(bn, 64)
+    a_chunk, b_chunk = 128 * bm, MM_ATOM * atoms
+    b_off = chunks * a_chunk
+    bar_off = b_off + chunks * b_chunk
+    return MmPlan(
+        bm=bm, bn=bn, chunks=chunks, ksteps=_cdiv(k, 16), atoms=atoms,
+        a_chunk=a_chunk, b_chunk=b_chunk, b_off=b_off, bar_off=bar_off,
+        smem=SWIZZLE_ATOM + bar_off + 8 * chunks, a_wg=64 * 128, a_k=32,
+        b_k=16 * 128, a_sbo=SWIZZLE_ATOM, b_lbo=MM_ATOM, b_sbo=SWIZZLE_ATOM,
+        grid=(_cdiv(n, bn), _cdiv(m, bm)))
+
+
+def mm_plan(m: int, k: int, n: int) -> MmPlan:
+    """The tile of ``mm_loop`` for a (m, k) @ (k, n) product.
+
+    Among the tiles whose panels fit in shared memory (BM 64 or 128, one or
+    two warpgroups; BN of ``MM_WIDTHS`` up to the narrowest that covers
+    N), the one whose busiest SM spends the fewest clocks an iteration:
+    its waves over the SMs, times the products of a tile, each an m64nBNk16
+    at the larger of its tensor-core clocks (BN / 2, at 4096 operations a
+    clock) and its operand reads from shared memory (16 + BN / 4, 2048 + 32
+    BN bytes at 128 a clock), times ``MM_ONE_GROUP`` for a tile of one
+    warpgroup; then the narrower BN, then the taller BM.  Raises where a
+    tensor map cannot describe the operands: K or N not a multiple of 8
+    elements (a row stride not whole 16-byte units)."""
+    if k % 8 or n % 8 or m < 1 or k < 1:
+        raise ValueError(f'mm_loop: ({m}, {k}) @ ({k}, {n}): K and N must '
+                         'be multiples of 8 (a tensor map\'s 16-byte row '
+                         'strides)')
+    cover = min([w for w in MM_WIDTHS if w >= n] or [MM_WIDTHS[-1]])
     best = None
-    for wm, wn in ((2, 4), (4, 2), (1, 8), (8, 1), (2, 2), (1, 4), (4, 1)):
-        bm, bn = 32 * wm, 8 * nf * wn
-        if mm_smem(bm, kp, bn) > SMEM_BYTES:
-            continue
-        blocks = _cdiv(m, bm) * _cdiv(np8, bn)
-        cost = (_cdiv(blocks, SMS) * wm * wn, -wm * wn)
-        if best is None or cost < best[0]:
-            best = (cost, (nf, wm, wn))
+    for bm in (64, 128):
+        for bn in MM_WIDTHS:
+            plan = mm_tile(bm, bn, m, k, n)
+            if bn > cover or plan.smem > SMEM_BYTES:
+                continue
+            waves = _cdiv(plan.grid[0] * plan.grid[1], SMS)
+            clocks = (waves * bm // 64 * plan.ksteps
+                      * max(bn / 2, 16 + bn / 4)
+                      * (MM_ONE_GROUP if bm == 64 else 1.0))
+            key = (clocks, bn, -bm)
+            if best is None or key < best[0]:
+                best = (key, plan)
     if best is None:
         raise ValueError(f'mm_loop: K={k} panels do not fit in shared memory')
     return best[1]
@@ -117,24 +241,32 @@ def mm_loop_plain(a: torch.Tensor, b: torch.Tensor,
     return acc.to(a.dtype)
 
 
-def mm_loop(a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+def mm_loop(a: torch.Tensor, b: torch.Tensor, iters: int, *,
+            plan: MmPlan | None = None) -> torch.Tensor:
     """out = cast(sum over ``iters`` of a @ b), summed in float32 with both
     operands resident in shared memory (``tools/microbench_mm.py:16``
-    ``mm_loop_kernel``).  a: (M, K), b: (K, N), bfloat16."""
+    ``mm_loop_kernel``).  a: (M, K), b: (K, N), bfloat16, 16-byte aligned,
+    K and N multiples of 8.  ``plan``: the tile, by default ``mm_plan``'s
+    (a measurement tool may time another of ``mm_tile``)."""
     if not _on_cuda(a):
         return mm_loop_plain(a, b, iters)
     _check_bf16('mm_loop', a, b)
     m, k = a.shape
-    if b.shape[0] != k or iters < 1:
+    if b.dim() != 2 or b.shape[0] != k or iters < 1:
         raise ValueError(f'mm_loop: a {tuple(a.shape)}, b {tuple(b.shape)}, '
                          f'iters {iters}')
     n = b.shape[1]
-    nf, wm, wn = mm_layout(m, k, n)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError('mm_loop: a and b must start 16-byte aligned (a '
+                         'tensor map\'s base)')
+    plan = plan or mm_plan(m, k, n)
     out = torch.empty((m, n), device=a.device, dtype=a.dtype)
+    args = plan.args()
     _build.check(_build.library().shiftnet_mm_loop(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, iters, nf, wm,
-        wn, _stream()), 'mm_loop')
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, iters,
+        (ctypes.c_longlong * len(args))(*args), _stream()), 'mm_loop')
     LAUNCHES['mm_loop'] += 1
+    ROUTES['mm_loop'] = f'wgmma {plan.bm}x{plan.bn}'
     return out
 
 
@@ -366,16 +498,73 @@ def _launch_copy(fn, name, x, out_shape, pieces, lanes, src_lane, *extra):
     return out
 
 
+COPY_ROUTES = {'element': 0, 'vector': 1}
+
+
+def copy_route(x: torch.Tensor, out: torch.Tensor, table,
+               lanes: int) -> str:
+    """The direct copy's unit: ``'vector'`` (16 bytes, 8 lanes) where every
+    row of every piece starts on the 16-byte grid on both sides, else
+    ``'element'``."""
+    sl, dl = x.shape[2], out.shape[2]
+    grid = (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+            and lanes % 8 == 0 and sl % 8 == 0 and dl % 8 == 0
+            and all(v % 8 == 0 for i, v in enumerate(table) if i % 3 < 2))
+    return 'vector' if grid else 'element'
+
+
+def copy_grid(units: int, n_pieces: int) -> tuple[int, int]:
+    """(blocks a piece, units a thread) of the direct copy, for pieces of
+    at most ``units`` units, every thread taking one batch: one unit a
+    thread where a wave of blocks (``COPY_WAVE``) holds the copy so, else
+    ``COPY_UNROLL`` units on as many blocks as that takes."""
+    per = (1 if _cdiv(units, COPY_THREADS) * n_pieces <= COPY_WAVE
+           else COPY_UNROLL)
+    return _cdiv(units, per * COPY_THREADS), per
+
+
 def block_copy(x: torch.Tensor, out_shape, pieces, lanes: int, *,
                src_lane: int = 0) -> torch.Tensor:
-    """The pieces copied device memory to device memory, 16 bytes a thread
-    where source and destination allow it (``tools/probe_hbm_copy.py:29``
-    ``_copy_kernel``, ``tools/probe_copy_bw.py:45`` ``_hbm_kernel``,
-    ``tools/probe_dma_align.py:64`` ``_slice_kernel``)."""
+    """The pieces copied device memory to device memory
+    (``tools/probe_hbm_copy.py:29`` ``_copy_kernel``,
+    ``tools/probe_copy_bw.py:45`` ``_hbm_kernel``,
+    ``tools/probe_dma_align.py:64`` ``_slice_kernel``), in the units of
+    ``copy_route`` on the grid of ``copy_grid``."""
     if not _on_cuda(x):
         return block_copy_plain(x, out_shape, pieces, lanes, src_lane)
-    return _launch_copy(_build.library().shiftnet_block_copy, 'block_copy',
-                        x, tuple(out_shape), pieces, lanes, src_lane)
+    _check_bf16('block_copy', x)
+    out_shape = tuple(out_shape)
+    table = piece_table('block_copy', x, out_shape, pieces, lanes, src_lane)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    route = copy_route(x, out, table, lanes)
+    units = max(p[4] for p in pieces) * (
+        lanes if route == 'element' else lanes // 8)
+    if units >= 2 ** 31:
+        raise ValueError(f'block_copy: {units} units in a piece (a 32-bit '
+                         'index)')
+    blocks, per = copy_grid(units, len(pieces))
+    _build.check(_build.library().shiftnet_block_copy(
+        x.data_ptr(), out.data_ptr(), (ctypes.c_longlong * len(table))(*table),
+        len(pieces), lanes, x.shape[2], out_shape[2], COPY_ROUTES[route],
+        blocks, per, _stream()), 'block_copy')
+    LAUNCHES['block_copy'] += 1
+    ROUTES['block_copy'] = route
+    return out
+
+
+def param_probe(x: torch.Tensor, out: torch.Tensor, big: bool) -> None:
+    """Copy x into out (bfloat16, contiguous, 16-byte aligned, a multiple
+    of 8 elements) in 16-byte units, one a thread, with the 3 KB piece
+    table of the staged copies as an unused kernel parameter (``big``) or
+    without: the parameter's cost (``tools/probe_launch.py``)."""
+    if (x.numel() != out.numel() or x.numel() % 8 or x.data_ptr() % 16
+            or out.data_ptr() % 16 or not (x.is_contiguous()
+                                           and out.is_contiguous())):
+        raise ValueError('param_probe: x and out must be contiguous, '
+                         '16-byte aligned, of one size in 16-byte units')
+    _build.check(_build.library().shiftnet_param_probe(
+        int(big), x.data_ptr(), out.data_ptr(), x.numel() // 8, _stream()),
+        'param_probe')
 
 
 def _launch_tma(x, out_shape, pieces, lanes, src_lane, scale):
@@ -403,6 +592,7 @@ def _launch_tma(x, out_shape, pieces, lanes, src_lane, scale):
         None if maps is None else maps.data_ptr(), _stream()),
         'block_copy_staged')
     LAUNCHES['block_copy_staged'] += 1
+    ROUTES['block_copy_staged'] = 'tma'
     return out
 
 
@@ -428,9 +618,11 @@ def block_copy_staged(x: torch.Tensor, out_shape, pieces, lanes: int, *,
     if x.dim() == 3 and len(out_shape) == 3 and staged_route(
             x, out_shape) == 'tma':
         return _launch_tma(x, out_shape, pieces, lanes, src_lane, scale)
-    return _launch_copy(_build.library().shiftnet_block_copy_staged,
-                        'block_copy_staged', x, out_shape, pieces, lanes,
-                        src_lane, tile, ctypes.c_float(scale))
+    out = _launch_copy(_build.library().shiftnet_block_copy_staged,
+                       'block_copy_staged', x, out_shape, pieces, lanes,
+                       src_lane, tile, ctypes.c_float(scale))
+    ROUTES['block_copy_staged'] = 'cp.async'
+    return out
 
 
 # -- strided_copy -------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Tensor-core rate of the ``mm_loop`` probe at the model's product shapes,
 beside cuBLAS.
 
-  python -m shiftnet_tpu_torch.tools.microbench_mm
+  python -m shiftnet_tpu_torch.tools.microbench_mm [--plans]
 
 The port's counterpart of the JAX package's ``tools/microbench_mm.py``: the
 same thirteen bf16 shapes (a dense reference, aligned sweeps, the TFR conv1
@@ -10,13 +10,18 @@ and s2d products, the Encoder2 expand at c = 80), plus the expand of the
 shape ``csrc/naf_gate.cu`` computes it: every pixel of every tile's expand
 region (the 16 x 16 tile and its 1-pixel halo) of a T = 4 360x640 tensor.
 Each case runs ``ops.probes.mm_loop`` (``iters`` products summed inside one
-launch; K padded to 16 and N to 8, only the real 2*M*K*N counted), checks
+launch; K filled with zeros to a 64-deep chunk and N to the tile's width,
+only the real 2*M*K*N counted), checks
 it against its plain version, and prints the time and rate per iteration
 beside one ``torch.matmul`` (cuBLAS) of the same product and the 989
-TFLOP/s bf16 peak.  Needs a CUDA device.
+TFLOP/s bf16 peak, with the tile ``ops.probes.mm_plan`` chose.  With
+``--plans`` it then times, at every case, each tile that fits
+(``ops.probes.mm_tile``), the planner's marked.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 
 import torch
@@ -75,23 +80,57 @@ def bench_mm(name: str, m: int, k: int, n: int, iters: int,
     ms = median_ms(lambda: probes.mm_loop(a, b, iters))
     lib_ms = iters * median_ms(lambda: torch.matmul(a, b))
     ops = 2 * m * k * n * iters
+    plan = probes.mm_plan(m, k, n)
     rec = dict(name=name, ms=ms, library_ms=lib_ms, bound_ms=ops_ms(ops),
                err=err, ok=err <= MM_TOL)
     print(f'{name:<44s} {1e3 * ms / iters:9.2f} us  '
           f'{ops / ms / 1e9:6.1f} TF/s  | cuBLAS {1e3 * lib_ms / iters:9.2f} '
           f'us {ops / lib_ms / 1e9:6.1f} TF/s | peak '
           f'{1e3 * rec["bound_ms"] / iters:7.2f} us  err {err:.2e} '
-          f'{"OK" if rec["ok"] else "FAIL"}', flush=True)
+          f'{"OK" if rec["ok"] else "FAIL"}  tile {plan.bm}x{plan.bn}',
+          flush=True)
     return rec
 
 
-def main() -> int:
+def bench_plans(name: str, m: int, k: int, n: int, iters: int,
+                seed: int = 0) -> bool:
+    """Every tile that fits, checked and timed; the planner's marked."""
+    a, b = rand_bf16((m, k), seed), rand_bf16((k, n), seed + 1)
+    want = probes.mm_loop_plain(a, b, iters)
+    chosen = probes.mm_plan(m, k, n)
+    cover = min([w for w in probes.MM_WIDTHS if w >= n]
+                or [probes.MM_WIDTHS[-1]])
+    ops, ok = 2 * m * k * n * iters, True
+    for bm in (64, 128):
+        for bn in probes.MM_WIDTHS:
+            plan = probes.mm_tile(bm, bn, m, k, n)
+            if bn > cover or plan.smem > probes.SMEM_BYTES:
+                continue
+            err = mm_err(probes.mm_loop(a, b, iters, plan=plan), want)
+            ok &= err <= MM_TOL
+            ms = median_ms(lambda: probes.mm_loop(a, b, iters, plan=plan))
+            print(f'{name:<44s} tile {bm:3d}x{bn:<3d} {ms:.4f} ms '
+                  f'{ops / ms / 1e9:6.1f} TF/s  err {err:.2e}'
+                  f'{"  <- mm_plan" if plan == chosen else ""}', flush=True)
+    return ok
+
+
+def main(argv=()) -> int:
     require_cuda('microbench_mm')
+    ap = argparse.ArgumentParser(prog='microbench_mm')
+    ap.add_argument('--plans', action='store_true')
+    args = ap.parse_args(list(argv))
     print(card())
-    print('== mm_loop, mma.sync bf16 -> f32, per iteration ==', flush=True)
+    print('== mm_loop, wgmma bf16 -> f32 from TMA-loaded panels, per '
+          'iteration ==', flush=True)
     recs = [bench_mm(*c) for c in cases()]
-    return 0 if all(r['ok'] for r in recs) else 1
+    ok = all(r['ok'] for r in recs)
+    if args.plans:
+        print('== mm_loop tiles ==', flush=True)
+        for c in cases():
+            ok &= bench_plans(*c)
+    return 0 if ok else 1
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

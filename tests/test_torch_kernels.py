@@ -577,8 +577,8 @@ def bf16_randn(g, *shape, device):
     (40, 216, 24),    # N = 24, K = 216: three n8 tiles a warp, K padded
     (24, 216, 200),   # M = 24: one partial 32-row warp tile
     (300, 80, 160),   # the Encoder2 expand's K and N
-    (70, 30, 13),     # N padded to 16, K to 32
-    (130, 512, 8)])   # one n8 tile a warp, a 512-deep panel
+    (70, 40, 16),     # K filled with zeros to a 64-deep chunk, N to 24
+    (130, 512, 8)])   # N = 8 in a 24-wide tile, a 512-deep panel
 def test_mm_loop_matches_plain(cuda, m, k, n):
     g = torch.Generator().manual_seed(m + k + n)
     a = torch.rand(m, k, generator=g).to(cuda, torch.bfloat16)
@@ -592,9 +592,36 @@ def test_mm_loop_matches_plain(cuda, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('bm', [64, 128])
+@pytest.mark.parametrize('bn', probes.MM_WIDTHS)
+def test_mm_loop_every_tile_matches_plain(cuda, bm, bn):
+    """Every tile the kernel instantiates, on a product ragged in M, K and
+    N: 64-column boxes read in part (BN 24, 32, 96, 160), a last column
+    tile whose boxes past N are not loaded, K = 216 in a part-full chunk."""
+    m, k, n = 200, 216, 200
+    g = torch.Generator().manual_seed(bm + bn)
+    a = torch.rand(m, k, generator=g).to(cuda, torch.bfloat16)
+    b = torch.rand(k, n, generator=g).to(cuda, torch.bfloat16)
+    got = probes.mm_loop(a, b, 2, plan=probes.mm_tile(bm, bn, m, k, n))
+    want = probes.mm_loop_plain(a, b, 2)
+    err = (got.double() - want.double()).abs().max()
+    assert err <= 2.0 ** -7 * want.double().abs().max()
+
+
+@pytest.mark.cuda
+def test_mm_loop_refuses_unaligned_rows(cuda):
+    """K or N not a multiple of 8 has no tensor map: the wrapper raises."""
+    a = torch.zeros(70, 30, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(30, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='multiples of 8'):
+        probes.mm_loop(a, b, 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('staged', [False, True])
 @pytest.mark.parametrize('case', ['hbm', 'shift', 'slab', 'offset',
-                                  'unaligned_src', 'unaligned_both'])
+                                  'part_rows', 'unaligned_src',
+                                  'unaligned_both'])
 def test_block_copies_match_plain(cuda, staged, case):
     g = torch.Generator().manual_seed(7)
     src_lane = 0
@@ -613,6 +640,10 @@ def test_block_copies_match_plain(cuda, staged, case):
     elif case == 'offset':   # rows 8 .. 48 of a (128, 1024) slab
         x = bf16_randn(g, 1, 128, 1024, device=cuda)
         out_shape, pieces, lanes = (1, 40, 1024), [(0, 8, 0, 0, 40)], 1024
+    elif case == 'part_rows':  # 512 of 1024 lanes into 520-lane rows
+        x = bf16_randn(g, 2, 48, 1024, device=cuda)
+        out_shape, lanes = (2, 40, 520), 512
+        pieces = [(1, 8, 0, 0, 40), (0, 3, 1, 2, 30)]
     elif case == 'unaligned_src':  # a 6-byte source offset on every row
         x = bf16_randn(g, 1, 128, 1024, device=cuda)
         out_shape, pieces, lanes = (1, 48, 1016), [(0, 40, 0, 0, 48)], 1016
@@ -640,6 +671,11 @@ def test_block_copies_match_plain(cuda, staged, case):
                        probes.written(want, pieces, lanes))
     name = 'block_copy_staged' if staged else 'block_copy'
     assert probes.LAUNCHES[name] == 1
+    if staged:  # the TMA takes a source lane off the 16-byte grid
+        want_route = 'cp.async' if case == 'unaligned_both' else 'tma'
+    else:
+        want_route = 'element' if case.startswith('unaligned') else 'vector'
+    assert probes.ROUTES[name] == want_route
 
 
 @pytest.mark.cuda

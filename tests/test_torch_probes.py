@@ -34,7 +34,7 @@ TOOLS = ('microbench_mm', 'probe_hbm_copy', 'probe_copy_bw',
 CONFIG_KEYS = ('jax_compilation_cache_dir',
                'jax_persistent_cache_min_compile_time_secs')
 PORT_TOOLS = ('microbench_mm', 'microbench', 'probe_hbm_copy', 'probe_chw',
-              'probe_copy_bw', 'probe_dma_align')
+              'probe_copy_bw', 'probe_dma_align', 'probe_launch', 'bench')
 
 
 @pytest.fixture(scope='module')
@@ -422,15 +422,205 @@ def test_unaligned_copies_keep_the_cp_async_route():
                                (2, 25, 336)) == 'cp.async'
 
 
-def test_mm_layout_fits_every_case():
-    """Every product the microbench_mm tool runs has a layout whose panels
-    fit in shared memory and whose warp tiles cover N padded to 8."""
-    for _, m, k, n, _ in port_mm.cases():
-        nf, wm, wn = probes.mm_layout(m, k, n)
-        kp = -(-k // 16) * 16
-        assert 1 <= nf <= 4 and 1 <= wm * wn <= 8
-        assert probes.mm_smem(32 * wm, kp, 8 * nf * wn) <= 232448
-        assert nf == 4 or 8 * nf >= n
+MM_CASES = port_mm.cases()
+
+
+@pytest.mark.parametrize('name,m,k,n', [c[:4] for c in MM_CASES],
+                         ids=[c[0] for c in MM_CASES])
+def test_mm_plan_fits_every_case(name, m, k, n):
+    """Every product the microbench_mm tool runs has a tile whose panels fit
+    in shared memory, whose TMA boxes and strides a tensor map takes under
+    the 128-byte swizzle, whose wgmma width is a multiple of 8 up to 256,
+    and whose grid covers M and N, K padded to whole 64-deep chunks."""
+    plan = probes.mm_plan(m, k, n)
+    assert plan.smem <= 232448
+    assert plan.bm in (64, 128) and plan.bn in probes.MM_WIDTHS
+    assert plan.bn % 8 == 0 and plan.bn <= 256
+    # boxes: A 64 k (128 bytes, the swizzle span) by BM rows, B 64 columns
+    # by 64 k; at most 256 a dimension; row strides whole 16-byte units
+    assert 2 * probes.MM_CHUNK <= 128 and plan.bm <= 256
+    assert (2 * k) % 16 == 0 and (2 * n) % 16 == 0
+    assert plan.a_chunk == 128 * plan.bm and plan.b_chunk == (
+        probes.MM_ATOM * plan.atoms)
+    gx, gy = plan.grid
+    assert gx * plan.bn >= n > (gx - 1) * plan.bn
+    assert gy * plan.bm >= m > (gy - 1) * plan.bm
+    assert plan.atoms * 64 >= plan.bn
+    assert plan.chunks * probes.MM_CHUNK >= k > (plan.chunks - 1) * 64
+    assert plan.ksteps == -(-k // 16)
+    # swizzle atoms 1024-byte aligned; barriers after both panels
+    for off in (plan.a_chunk, plan.b_chunk, plan.b_off, plan.a_wg):
+        assert off % 1024 == 0
+    assert plan.bar_off == plan.b_off + plan.chunks * plan.b_chunk
+    assert plan.bar_off + 8 * plan.chunks + 1024 <= plan.smem
+
+
+def test_mm_plan_refuses_rows_a_map_cannot_take():
+    """A row of K or N not a whole number of 16-byte units has no tensor
+    map; the planner raises rather than pick another route."""
+    with pytest.raises(ValueError, match='multiples of 8'):
+        probes.mm_plan(70, 30, 16)
+    with pytest.raises(ValueError, match='multiples of 8'):
+        probes.mm_plan(70, 32, 13)
+
+
+def test_chip_smoke_mm_tiles_follow_the_planner():
+    """``chip_smoke.py`` holds mm_loop's launched tile to a fixed tile at
+    each shape of its probes phase; those must be the tiles ``mm_plan``
+    picks, so that on the card only a wrong launch fails."""
+    spec = importlib.util.spec_from_file_location('chip_smoke',
+                                                  REPO / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = [c[1:4] for c in port_mm.cases()
+              if c[0].startswith(('ref ', 'P@W ', 'gate'))][:1] + [
+        c[1:4] for c in port_mm.cases() if c[0].startswith(('P@W ', 'gate'))]
+    assert sorted(smoke.MM_TILES) == sorted(set(shapes))
+    for (m, k, n), tile in smoke.MM_TILES.items():
+        plan = probes.mm_plan(m, k, n)
+        assert f'{plan.bm}x{plan.bn}' == tile
+
+
+def swizzled(off):
+    """The 128-byte swizzle, written from its definition: within each
+    128-byte row the 16-byte unit u moves to u ^ (row % 8)."""
+    off = np.asarray(off)
+    row, unit, byte = off // 128, off % 128 // 16, off % 16
+    return row * 128 + (unit ^ (row % 8)) * 16 + byte
+
+
+def tma_box(base, rows, lanes):
+    """Byte address of element (r, e) of a bf16 box of 128-byte rows that
+    the TMA lands at ``base`` (1024-byte aligned) under the swizzle."""
+    r, e = np.meshgrid(np.arange(rows), np.arange(lanes), indexing='ij')
+    return base + swizzled(128 * r + 2 * e)
+
+
+def read_k_major(start, sbo, rows, depth):
+    """Where wgmma reads element (m, k) of a K-major operand under the
+    128-byte swizzle: start + (m / 8) SBO + (m % 8) 128 + 2 k, swizzled
+    as an address (PTX ISA, shared-memory matrix layouts)."""
+    m, k = np.meshgrid(np.arange(rows), np.arange(depth), indexing='ij')
+    return swizzled(start + m // 8 * sbo + m % 8 * 128 + 2 * k)
+
+
+def read_mn_major(start, lbo, sbo, depth, cols):
+    """Where wgmma reads element (k, n) of an MN-major operand under the
+    128-byte swizzle: start + (n / 64) LBO + (k / 8) SBO + (k % 8) 128 +
+    2 (n % 64), swizzled as an address."""
+    k, n = np.meshgrid(np.arange(depth), np.arange(cols), indexing='ij')
+    return swizzled(start + n // 64 * lbo + k // 8 * sbo + k % 8 * 128
+                    + 2 * (n % 64))
+
+
+@pytest.mark.parametrize('bm', [64, 128])
+@pytest.mark.parametrize('bn', probes.MM_WIDTHS)
+def test_mm_descriptors_read_what_the_tma_wrote(bm, bn):
+    """The planner's descriptor offsets, read as wgmma reads them, name
+    every element of every k-step of the A and B tiles at the address the
+    TMA's swizzle put it, and every element of both panels has its own
+    address inside its panel.  K = 216 leaves the last chunk part full."""
+    k = 216
+    plan = probes.mm_tile(bm, bn, 1000, k, 1000)
+    a_at = np.array([[plan.a_addr(r, kk) for kk in range(64 * plan.chunks)]
+                     for r in range(bm)])
+    b_at = np.array([[plan.b_addr(kk, c) for c in range(64 * plan.atoms)]
+                     for kk in range(64 * plan.chunks)])
+    # distinct, inside the panels, where the TMA's boxes put them
+    assert len(np.unique(a_at)) == a_at.size
+    assert a_at.min() >= 0 and a_at.max() < plan.b_off
+    assert len(np.unique(b_at)) == b_at.size
+    assert b_at.min() >= plan.b_off and b_at.max() < plan.bar_off
+    for c in range(plan.chunks):
+        np.testing.assert_array_equal(
+            a_at[:, 64 * c:64 * c + 64], tma_box(c * plan.a_chunk, bm, 64))
+        for j in range(plan.atoms):
+            np.testing.assert_array_equal(
+                b_at[64 * c:64 * c + 64, 64 * j:64 * j + 64],
+                tma_box(plan.b_off + c * plan.b_chunk + j * probes.MM_ATOM,
+                        64, 64))
+    # every k-step's descriptors read the tile's elements there
+    for step in range(plan.ksteps):
+        for wg in range(bm // 64):
+            np.testing.assert_array_equal(
+                read_k_major(plan.a_start(wg, step), plan.a_sbo, 64, 16),
+                a_at[64 * wg:64 * wg + 64, 16 * step:16 * step + 16])
+        np.testing.assert_array_equal(
+            read_mn_major(plan.b_start(step), plan.b_lbo, plan.b_sbo, 16,
+                          bn),
+            b_at[16 * step:16 * step + 16, :bn])
+    # 16-byte units of a swizzle atom stay whole and inside the atom
+    assert (swizzled(np.arange(0, 1024, 16)) // 1024 == 0).all()
+
+
+def probe_direct_copies():
+    """(label, source shape, output shape, pieces, lanes, source lane) of
+    every direct copy the probe tools and ``chip_smoke.py`` make."""
+    from shiftnet_tpu_torch.tools import probe_copy_bw, probe_dma_align
+    out = [('hbm', (4, 128, 1024), (4, 128, 1024),
+            probes.hbm_copy_pieces(4, 40, 40), 1024, 0)]
+    t, pp, cb, lp = probe_copy_bw.JAX_SHAPE
+    out.append(('permute jax', (t, pp * cb, lp), (t, pp * cb, lp),
+                probes.shift_pieces(t, pp, cb, cb // 2), lp, 0))
+    for t, c, hw in probe_copy_bw.PORT_SHAPES:
+        out.append((f'permute {t}x{c}x{hw}', (t, c, hw), (t, c, hw),
+                    probes.shift_pieces(t, 1, c, c // 2), hw, 0))
+    for off, lane in probe_dma_align.CASES:
+        lanes = 1024 - 8 if lane else 1024
+        out.append((f'slice {off} lane {lane}', (1, 128, 1024),
+                    (1, 40, lanes), [(0, off, 0, 0, 40)], lanes, lane))
+    return out
+
+
+@pytest.mark.parametrize('label,x_shape,out_shape,pieces,lanes,src_lane',
+                         probe_direct_copies(),
+                         ids=[c[0] for c in probe_direct_copies()])
+def test_copy_grid_covers_every_unit_once(label, x_shape, out_shape, pieces,
+                                          lanes, src_lane):
+    """The direct copy's grid (``probes.copy_grid``), walked as
+    ``block_copy_kernel`` walks it: every unit of the largest piece once,
+    one batch a thread, of one unit where a wave of blocks holds the copy
+    so (the small copies), else of ``COPY_UNROLL``.  Every probe copy
+    moves 16-byte units but the one at a lane offset."""
+    x = torch.empty(x_shape, dtype=torch.bfloat16, device='meta')
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device='meta')
+    table = probes.piece_table('block_copy', x, out_shape, pieces, lanes,
+                               src_lane)
+    route = probes.copy_route(x, out, table, lanes)
+    assert route == ('element' if src_lane % 8 else 'vector')
+    units = max(p[4] for p in pieces) * (
+        lanes if route == 'element' else lanes // 8)
+    blocks, per = probes.copy_grid(units, len(pieces))
+    assert per in (1, probes.COPY_UNROLL)
+    threads = probes.COPY_THREADS
+    j, block, thread = np.meshgrid(np.arange(per), np.arange(blocks),
+                                   np.arange(threads), indexing='ij')
+    u = (j * blocks + block) * threads + thread
+    took = u < units
+    np.testing.assert_array_equal(np.bincount(u[took], minlength=units),
+                                  np.ones(units, np.int64))
+    assert took.sum(axis=0).max() <= per
+    # one unit a thread exactly where a wave of such blocks holds the copy
+    assert (per == 1) == (-(-units // threads) * len(pieces)
+                          <= probes.COPY_WAVE)
+    if label.startswith(('hbm', 'slice')):
+        assert per == 1
+
+
+def test_copy_route_takes_the_widest_unit():
+    """16-byte units where every row of both sides starts on the 16-byte
+    grid, whether or not rows lie back to back, else single elements: a
+    row length or a piece off the 16-byte grid."""
+    x = torch.empty((2, 48, 1024), dtype=torch.bfloat16, device='meta')
+
+    def route(out_shape, pieces, lanes, src_lane=0):
+        out = torch.empty(out_shape, dtype=torch.bfloat16, device='meta')
+        return probes.copy_route(x, out, probes.piece_table(
+            'block_copy', x, out_shape, pieces, lanes, src_lane), lanes)
+    assert route((2, 40, 1024), [(1, 8, 0, 0, 40)], 1024) == 'vector'
+    assert route((2, 40, 520), [(1, 8, 0, 0, 40)], 512) == 'vector'
+    assert route((2, 40, 1024), [(1, 8, 0, 0, 40)], 1016, 3) == 'element'
+    assert route((2, 40, 1020), [(1, 8, 0, 0, 40)], 1016) == 'element'
 
 
 @pytest.mark.parametrize('name', PORT_TOOLS)
