@@ -62,7 +62,24 @@ Phases, each of which must pass:
    ulp of its largest output (its route: the wgmma tile of ``MM_TILES``),
    with median times, bounds and the PyTorch call that computes the same
    function.
-8. bench: the port's bench entry point (``shiftnet_tpu_torch/tools/
+8. validation: the reference's validation protocol on the kernels
+   (``Evaluator.forward_grids``, crops with rot/flip TTA): at a
+   frame-covering crop it must equal ``forward_window``; on a 5x256x384
+   window in crops of 128 with 8 transforms (48 forwards) the float32
+   model on the kernels is held against the all-plain model; a deblur_plus
+   40x720x1280 bf16 window in 15 crops of 256 is timed beside the full
+   window, with its launches counted (``launches_deblur_plus_grids``) and
+   its peak; every metric of the registry runs on one 720p output frame,
+   with its host time; ``psnr_t`` and ``ssim_t`` on the card are held
+   against the numpy ``psnr`` and ``ssim``; the deblur CLI runs with
+   ``--grids --metric niqe=calculate_niqe --metric psnr=calculate_psnr
+   --profile`` on a synthetic two-video folder, and its Chrome trace must
+   name a kernel of the port.
+9. drift: ``tools/measure_drift.py`` on its default variants
+   (deblur_plus, denoise_small): bf16 on the kernels against float32 on
+   the all-plain model, in dB, with each leg's peak; it fails only on a
+   non-finite output.
+10. bench: the port's bench entry point (``shiftnet_tpu_torch/tools/
    bench.py``, deblur_plus 720p) with one timed window; its JSON line must
    parse.
 
@@ -151,6 +168,13 @@ DN_T = 12 + 2 * HALO
 DN_T_DAVIS = 50 + 2 * HALO
 DN_W_DAVIS = 852
 SIGMA = 10.0 / 255.0
+# The validation protocol (``Evaluator.forward_grids``): the reference's
+# crop of 256; the float32 check's window, crop and transforms (6 crops of
+# 128, a multiple of 16 so every U-Net level stays whole, x 8 transforms).
+GRID_CROP = 256
+GRID_CHECK = (2 * HALO + 1, 256, 384, 128, 8)
+GRID_SQUARE = 384  # the frame-covering crop's square window
+CLI_FRAME = (256, 384)  # the validation CLI's frames (NIQE needs 96x96)
 
 # Each row of the kernels line: (source, the TPU kernel it replaces, another
 # it also replaces, the launch counter, the path whose launches it reports).
@@ -840,7 +864,8 @@ def deblur_phase(card, logs):
     Evaluator (``fused_chw``, the main path), the ``conv_concat``
     configuration and the ``fused_tfr`` configuration, each with its own
     launch counts; then the whole model in each configuration against the
-    all-plain model.  Returns the launches of each path."""
+    all-plain model.  Returns the launches of each path and the default
+    window's fps."""
     import torch
     from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
     from shiftnet_tpu_torch.models import build_model, init_state
@@ -870,7 +895,9 @@ def deblur_phase(card, logs):
     _whole_model('deblur_plus', state, _clip(2 * HALO + 1, H, W, seed=2),
                  None, ('fused_chw', 'conv_concat', 'fused_tfr'),
                  ('float32', 'bfloat16'), logs)
-    return {name: run[0] for name, run in runs.items()}
+    full = runs['fused_chw'][1]
+    return ({name: run[0] for name, run in runs.items()},
+            len(full) * ONE_LEN / sum(full))
 
 
 def _davis_width(ev, variant, expected):
@@ -1298,6 +1325,187 @@ def probe_phase(card):
     return rec, launches
 
 
+# The model kernels by their CUDA names, to find in a profiler trace.
+MODEL_KERNEL_SYMBOLS = (*MMA_KERNELS, 'cab_back_kernel', 'shift_round_kernel')
+
+
+def _write_videos(root, n_frames, h, w, seed):
+    """Two synthetic videos of PNG frames under ``root/blur`` and
+    ``root/gt`` (a noisy copy of each gt frame as its blurred frame)."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for v in ('clip1', 'clip2'):
+        base = rng.integers(0, 255, (h, w, 3))
+        for sub in ('blur', 'gt'):
+            os.makedirs(os.path.join(root, sub, v))
+        for i in range(n_frames):
+            gt = np.clip(base + rng.integers(-8, 8, (h, w, 3)), 0, 255)
+            blur = np.clip(gt + rng.integers(-4, 4, (h, w, 3)), 0, 255)
+            for sub, img in (('gt', gt), ('blur', blur)):
+                Image.fromarray(img.astype(np.uint8)).save(
+                    os.path.join(root, sub, v, f'{i:03d}.png'))
+
+
+def _validation_cli(state, card, tmp):
+    """``test_deblur.main`` with ``--grids``, NIQE and PSNR from the
+    registry and ``--profile`` on two synthetic 6-frame videos; the
+    Chrome trace must name a model kernel."""
+    import contextlib
+    import io
+    from shiftnet_tpu_torch.tools import test_deblur
+    data, prof = os.path.join(tmp, 'data'), os.path.join(tmp, 'prof')
+    _write_videos(data, 6, *CLI_FRAME, seed=11)
+    npz = os.path.join(tmp, 'net.npz')
+    np.savez(npz, **{k: v.numpy() for k, v in state.items()})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        test_deblur.main(['--model_path', npz, '--data_path', data,
+                          '--result_path', os.path.join(tmp, 'out'),
+                          '--one_len', '2', '--grids',
+                          '--metric', 'niqe=calculate_niqe',
+                          '--metric', 'psnr=calculate_psnr',
+                          '--profile', prof])
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+    with open(traces[0]) as f:
+        names = {e.get('name', '') for e in json.load(f)['traceEvents']}
+    found = sorted({k for k in MODEL_KERNEL_SYMBOLS
+                    if any(k in n for n in names)})
+    total = [ln for ln in lines if ln.startswith('# Total')]
+    print(f'validation: test_deblur --grids --metric niqe --metric psnr '
+          f'--profile: {dt:.1f} s, {total[-1] if total else "no total"}; '
+          f'trace {os.path.basename(traces[0])} '
+          f'{os.path.getsize(traces[0]) / 1e6:.1f} MB names {found} '
+          f'[{card}]', flush=True)
+    if not total or 'AVG-NIQE=' not in total[-1] or not found:
+        raise AssertionError('the profiled validation CLI run did not score '
+                             'NIQE or its trace names no kernel of the port')
+
+
+def validation_phase(card, logs, full_fps):
+    """The validation protocol (``Evaluator.forward_grids``) on the
+    kernels: equal to ``forward_window`` at a frame-covering crop; the
+    float32 model on the kernels against the all-plain model at 8
+    transforms; a timed 720p deblur_plus grids window with its launches
+    and peak; every registry metric at 720p; the torch metrics against the
+    numpy ones; the profiled CLI.  Returns the grids window's launches."""
+    import torch
+    from shiftnet_tpu_torch.eval import metrics
+    from shiftnet_tpu_torch.eval.grids import plan_grids
+    from shiftnet_tpu_torch.eval.registry import (METRIC_FUNCS,
+                                                  calculate_metric)
+    from shiftnet_tpu_torch.eval.runner import CONFIG_OVERRIDES, Evaluator
+    from shiftnet_tpu_torch.models import build_model, init_state
+    from shiftnet_tpu_torch.ops import chw
+
+    state = init_state(build_model('deblur_plus'), seed=0)
+    ev = Evaluator('deblur_plus', state, device='cuda', result_path=logs)
+    sq = _clip(2 * HALO + 1, GRID_SQUARE, GRID_SQUARE, seed=12)
+    same = np.array_equal(ev.forward_grids(sq, crop_size=GRID_SQUARE),
+                          ev.forward_window(sq))
+    print(f'validation: deblur_plus bf16 forward_grids at a frame-covering '
+          f'crop ({GRID_SQUARE} of {sq.shape}) equals forward_window: '
+          f'{same}', flush=True)
+    if not same:
+        raise AssertionError('forward_grids at a frame-covering crop differs '
+                             'from forward_window')
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t, h, w, crop, trans = GRID_CHECK
+    small = _clip(t, h, w, seed=13)
+    outs = {}
+    for name in ('fused_chw', 'plain'):
+        e32 = Evaluator('deblur_plus', state, device='cuda', bf16=False,
+                        overrides=CONFIG_OVERRIDES[name], result_path=logs)
+        outs[name] = torch.from_numpy(e32.forward_grids(
+            small, crop_size=crop, trans_num=trans))
+        del e32
+    err = _norm_err(outs['fused_chw'], outs['plain'])[0]
+    print(f'validation: deblur_plus float32 forward_grids {t}x{h}x{w} crop '
+          f'{crop} x {trans} transforms, kernels vs all-plain model: err '
+          f'{err:.3e} (tol {SLICE_TOL_F32:.0e})', flush=True)
+    if not err <= SLICE_TOL_F32:
+        raise AssertionError('forward_grids on the kernels disagrees with '
+                             'the plain model')
+    del outs
+    torch.cuda.empty_cache()
+
+    clip = _clip(ONE_LEN + 2 * HALO, H, W, seed=1)
+    n_crops = len(plan_grids(H, W, GRID_CROP))
+    chw.reset_launches()
+    out = ev.forward_grids(clip, crop_size=GRID_CROP)
+    launches = dict(chw.LAUNCHES)
+    expected = {k: n_crops * v for k, v in MAIN_PATH_LAUNCHES.items()}
+    print(f'validation: deblur_plus grids window {clip.shape} {n_crops} '
+          f'crops of {GRID_CROP}: launches {launches}', flush=True)
+    if (launches != expected or out.shape != (ONE_LEN, H, W, 3)
+            or not np.isfinite(out).all()):
+        raise AssertionError(f'the grids window: launches {launches}, '
+                             f'expected {expected}, or a bad output')
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ev.forward_grids(clip, crop_size=GRID_CROP)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f'validation: deblur_plus bf16 grids window T={clip.shape[0]} '
+          f'{H}x{W}, {n_crops} crops of {GRID_CROP}, 1 transform: {dt:.3f} '
+          f's/window, {ONE_LEN / dt:.4f} fps, peak {peak / 1e9:.3f} GB; the '
+          f'full window in this call {full_fps:.4f} fps [{card}]', flush=True)
+    del ev
+    torch.cuda.empty_cache()
+
+    img = np.clip(out[0], 0, 1) * 255.0
+    gt = clip[HALO] * 255.0
+    for name in METRIC_FUNCS:
+        t0 = time.perf_counter()
+        v = calculate_metric({'img': img, 'img2': gt}, {'type': name})
+        ms = 1e3 * (time.perf_counter() - t0)
+        print(f'validation: metric {name:15s} on one 720p frame: {v:.6f} in '
+              f'{ms:.1f} host ms [{card}]', flush=True)
+        if not np.isfinite(v):
+            raise AssertionError(f'metric {name}: {v}')
+    pair = (np.clip(out[:2], 0, 1) * 255.0, clip[HALO:HALO + 2] * 255.0)
+    pt = metrics.psnr_t(*(torch.from_numpy(a).cuda() for a in pair)).cpu()
+    st = metrics.ssim_t(*(torch.from_numpy(a).cuda() for a in pair)).cpu()
+    dp = max(abs(float(pt[i]) - metrics.psnr(pair[0][i], pair[1][i]))
+             for i in range(2))
+    ds = max(abs(float(st[i]) - metrics.ssim(pair[0][i], pair[1][i]))
+             for i in range(2))
+    print(f'validation: psnr_t / ssim_t on the card vs numpy psnr / ssim, two '
+          f'720p frames: |d| {dp:.2e} (tol 1e-3) / {ds:.2e} (tol 2e-4)',
+          flush=True)
+    if not (dp < 1e-3 and ds < 2e-4):
+        raise AssertionError('psnr_t / ssim_t disagree with psnr / ssim')
+    del out, pair, pt, st
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _validation_cli(state, card, tmp)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drift_phase(card):
+    """``measure_drift`` on its default variants: bf16 on the kernels
+    against float32 on the all-plain model; fails only on a non-finite
+    output (``run`` raises)."""
+    import torch
+    from shiftnet_tpu_torch.models import CONFIGS
+    from shiftnet_tpu_torch.tools import measure_drift
+    for v in ('deblur_plus', 'denoise_small'):
+        size = measure_drift.SIZES['denoise' if CONFIGS[v].noise_map
+                                   else 'deblur']
+        res = measure_drift.run(v, *size)
+        print(f'drift: {v} {size}: {res["db"]:.2f} dB; peaks ' + ', '.join(
+            f'{leg} {r["peak"] / 1e9:.3f} GB'
+            for leg, r in res['legs'].items()) + f' [{card}]', flush=True)
+        del res
+        torch.cuda.empty_cache()
+
+
 def bench_phase():
     """The port's bench entry point (``shiftnet_tpu_torch/tools/bench.py``)
     with one timed window: its JSON line must parse, with a finite fps."""
@@ -1327,9 +1535,17 @@ def main():
     probe_rec, probe_launches = probe_phase(card)
     print(f'probes: phase took {time.perf_counter() - t0:.1f} s', flush=True)
     with tempfile.TemporaryDirectory() as logs:
-        launches = deblur_phase(card, logs)
+        launches, full_fps = deblur_phase(card, logs)
         launches.update(denoise_phase(card, logs))
         launches.update(small_phase(card, logs))
+        t0 = time.perf_counter()
+        launches['deblur_plus_grids'] = validation_phase(card, logs,
+                                                         full_fps)
+        print(f'validation: phase took {time.perf_counter() - t0:.1f} s',
+              flush=True)
+    t0 = time.perf_counter()
+    drift_phase(card)
+    print(f'drift: phase took {time.perf_counter() - t0:.1f} s', flush=True)
     t0 = time.perf_counter()
     bench_phase()
     print(f'bench: phase took {time.perf_counter() - t0:.1f} s', flush=True)

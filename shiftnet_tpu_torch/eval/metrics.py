@@ -1,10 +1,10 @@
 """The metrics of the published deblur numbers (``inference/test_deblur.py``),
-on numpy.
+on numpy, and their batched counterparts on torch tensors.
 
-The port's own copy of ``shiftnet_tpu/eval/metrics.py:26-66`` (``psnr``,
-``ssim``) and a small ``score_pair`` in the shape of
-``shiftnet_tpu/eval/registry.py:score_pair``: the port imports nothing of
-the JAX package.
+The port's own copy of ``shiftnet_tpu/eval/metrics.py:26-115`` (``psnr``,
+``ssim``; ``psnr_t`` and ``ssim_t`` for ``psnr_jax`` and ``ssim_jax``):
+the port imports nothing of the JAX package.  Scoring goes through
+``eval/registry.py``.
 
 - PSNR: ``skimage.metrics.peak_signal_noise_ratio(output*255, gt,
   data_range=255)`` on float arrays (``test_deblur.py:142``).
@@ -14,9 +14,8 @@ the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any
-
 import numpy as np
+import torch
 from scipy.ndimage import gaussian_filter
 
 
@@ -47,15 +46,53 @@ def ssim(img: np.ndarray, gt: np.ndarray, sd: float = 1.5,
     return float(np.mean(num / den))
 
 
-METRIC_FUNCS = {'psnr': psnr, 'ssim': ssim}
+def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    # scipy.ndimage._filters._gaussian_kernel1d
+    x = np.arange(-radius, radius + 1)
+    phi = np.exp(-0.5 / (sigma * sigma) * x ** 2)
+    return (phi / phi.sum()).astype(np.float32)
 
 
-def score_pair(img: np.ndarray, gt: np.ndarray,
-               metrics: dict[str, dict[str, Any]]) -> dict[str, float]:
-    """Every configured metric on one (restored, gt) pair of uint8-range
-    HWC images; ``metrics``: {name: {'type': 'psnr' | 'ssim', **kwargs}}."""
-    out = {}
-    for name, opt in metrics.items():
-        kw = dict(opt)
-        out[name] = float(METRIC_FUNCS[kw.pop('type')](img, gt, **kw))
-    return out
+def psnr_t(img: torch.Tensor, gt: torch.Tensor,
+           data_range: float = 255.0) -> torch.Tensor:
+    """Batched PSNR of (..., H, W, C) tensors in the same range, in float32
+    on their device (``shiftnet_tpu/eval/metrics.py:69`` ``psnr_jax``)."""
+    x = img.float()
+    y = gt.float()
+    mse = torch.mean((x - y) ** 2, dim=(-3, -2, -1))
+    return 10.0 * torch.log10((data_range ** 2) / mse)
+
+
+def ssim_t(img: torch.Tensor, gt: torch.Tensor, sd: float = 1.5,
+           c1: float = 0.01 ** 2, c2: float = 0.03 ** 2) -> torch.Tensor:
+    """The reference SSIM of (T, H, W, C) tensors in [0, 255], one value a
+    frame, in float32 on their device (``shiftnet_tpu/eval/metrics.py:79``
+    ``ssim_jax``): scipy's reflect-mode gaussian (truncate 4.0) along H, W
+    and the channel axis."""
+    radius = int(4.0 * sd + 0.5)
+    k = torch.from_numpy(_gaussian_kernel1d(sd, radius)).to(img.device)
+
+    def filt_axis(v, axis):
+        # scipy's 'reflect' repeats the edge sample (numpy's 'symmetric'),
+        # also where the radius exceeds the axis (C = 3)
+        n = v.shape[axis]
+        p = torch.arange(-radius, n + radius, device=v.device) % (2 * n)
+        idx = torch.where(p < n, p, 2 * n - 1 - p)
+        vp = v.index_select(axis, idx).movedim(axis, -1)
+        out = sum(k[j] * vp[..., j:j + n] for j in range(2 * radius + 1))
+        return out.movedim(-1, axis)
+
+    def gauss3(v):
+        for ax in (1, 2, 3):
+            v = filt_axis(v, ax)
+        return v
+
+    x = img.float() / 255.0
+    y = gt.float() / 255.0
+    mu1, mu2 = gauss3(x), gauss3(y)
+    s1 = gauss3(x * x) - mu1 * mu1
+    s2 = gauss3(y * y) - mu2 * mu2
+    s12 = gauss3(x * y) - mu1 * mu2
+    num = (2 * mu1 * mu2 + c1) * (2 * s12 + c2)
+    den = (mu1 * mu1 + mu2 * mu2 + c1) * (s1 + s2 + c2)
+    return torch.mean(num / den, dim=(1, 2, 3))

@@ -3,8 +3,11 @@
 
 Mirrors ``inference/test_deblur.py`` and ``inference/test_denoise.py``: scan
 video folders, run windowed inference (denoise: on clips with seeded
-gaussian noise and a constant noise map), score PSNR and the reference SSIM
-per frame, log per-video and total averages to a text log.  The window plan
+gaussian noise and a constant noise map), score every configured metric of
+``eval/registry.py`` per frame (by default PSNR and the reference SSIM),
+log per-video and total averages to a text log.  ``grids`` switches the
+forward to the reference's validation tiling with rot/flip test-time
+augmentation (``forward_grids``).  The window plan
 is decided before the run and logged: the whole window at once, two
 half-height tiles when the device's free memory is below a stated per-pixel
 estimate, or the reference's four quadrant tiles when asked for or when the
@@ -21,7 +24,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from shiftnet_tpu_torch.eval.metrics import score_pair
+from shiftnet_tpu_torch.eval.grids import (extract_grids, merge_grids,
+                                           plan_grids)
+from shiftnet_tpu_torch.eval.registry import METRIC_FUNCS, score_pair
 from shiftnet_tpu_torch.eval.window import (half_slices, mod_crop,
                                             plan_deblur_chunks,
                                             plan_denoise_chunks,
@@ -29,13 +34,14 @@ from shiftnet_tpu_torch.eval.window import (half_slices, mod_crop,
 from shiftnet_tpu_torch.models import CONFIGS, GShiftNetConfig, build_model
 
 HALO = 2  # input frames on each side of a window's outputs (test_deblur.py)
-# The inference-local protocol the published numbers use (skimage PSNR and
-# the scipy-gaussian SSIM, ``test_deblur.py:25-49``).
+# The default of ``Evaluator(metrics=...)``: the inference-local protocol
+# the published numbers use (skimage PSNR and the scipy-gaussian SSIM,
+# ``test_deblur.py:25-49``), as in ``shiftnet_tpu/eval/runner.py:87-91``.
 METRICS = {'psnr': {'type': 'psnr'}, 'ssim': {'type': 'ssim'}}
 # Peak device memory of a forward per input pixel (T * H * W) in a bf16
 # window, by variant and configuration, with ~10 % headroom over peaks
-# measured on an H100 80GB HBM3 (700 W) by chip_smoke.py (PERF.md, "H100
-# port"); a float32 window takes twice the figure.  The peak of every
+# measured on an H100 80GB HBM3 (700 W) by chip_smoke.py (PERF.md,
+# Findings); a float32 window takes twice the figure.  The peak of every
 # fused_chw window sits in Encoder2's shift blocks at H/2 (decoder_level1,
 # and in the small variants equally encoder_level1), so conv_concat (which
 # drops the rconcat and conv_hr0 concats) shares its configuration's
@@ -117,12 +123,14 @@ class Evaluator:
     Deblur computes in bf16 and denoise in float32 by default, with float32
     parameters, and the model runs on the CUDA kernels (``fused_chw``; the
     plain versions on the CPU), as the JAX Evaluator does
-    (``shiftnet_tpu/eval/runner.py:51-74``)."""
+    (``shiftnet_tpu/eval/runner.py:51-74``).  ``metrics``: {name: {'type':
+    <a name of ``eval.registry.METRIC_FUNCS``>, **kwargs}}, the reference's
+    ``val.metrics``; ``METRICS`` by default."""
 
     def __init__(self, variant: str, state: dict[str, torch.Tensor], *,
                  device: str | torch.device, result_path: str = 'results',
                  bf16: bool | None = None, save_images: bool = False,
-                 overrides: dict | None = None):
+                 overrides: dict | None = None, metrics: dict | None = None):
         if bf16 is None:
             bf16 = not CONFIGS[variant].noise_map
         overrides = dict(overrides or {})
@@ -136,6 +144,12 @@ class Evaluator:
         self.noise_map = self.model.cfg.noise_map
         self.bytes_per_px = WINDOW_BYTES_PER_PX[
             (variant, configuration(self.model.cfg), self.dtype)]
+        self.metrics = dict(metrics) if metrics else dict(METRICS)
+        unknown = sorted({str(m.get('type')) for m in self.metrics.values()}
+                         - set(METRIC_FUNCS))
+        if unknown:
+            raise ValueError(f'unknown metric types {unknown}; the registry '
+                             f'has {sorted(METRIC_FUNCS)}')
         self.save_images = save_images
         self.result_path = result_path
         stamp = time.strftime('%Y-%m-%d %H:%M:%S')
@@ -206,15 +220,44 @@ class Evaluator:
             out[:, out_sl[0], out_sl[1]] = o[:, crop_sl[0], crop_sl[1]]
         return out
 
-    def eval_deblur(self, data_path: str, one_len: int = 48) -> dict:
-        """Protocol of ``test_deblur.py:91-177``; returns summary metrics."""
+    def forward_grids(self, x: np.ndarray, sigma: float | None = None, *,
+                      crop_size: int = 256, trans_num: int = 1) -> np.ndarray:
+        """One (T, H, W, 3) window in [0, 1] -> (T - 2*HALO, H, W, 3) float32
+        through the reference's validation protocol
+        (``image_restoration_model.py:161-252``: ``grids``, a forward per
+        crop, ``grids_inverse``), as ``shiftnet_tpu/eval/runner.py:135-160``:
+        ``min(crop_size, H, W)`` square crops covering the frame, each in
+        ``trans_num`` rot/flip transforms, each run whole through the model
+        (no window plan), averaged where crops overlap."""
+        if (sigma is not None) != self.noise_map:
+            raise ValueError('sigma is required exactly when the variant '
+                             'takes a noise map')
+        t, h, w, _ = x.shape
+        cs = min(crop_size, h, w)
+        if cs % 8:
+            raise ValueError(
+                f'grids crop {cs} (crop_size {crop_size}, frame {h}x{w}): '
+                "the model's three stride-2 levels need a multiple of 8")
+        plans = plan_grids(h, w, cs, trans_num)
+        self.logger.write(f'[grids] window {tuple(x.shape)} {self.dtype}: '
+                          f'{len(plans) // trans_num} crops of {cs}x{cs} x '
+                          f'{trans_num} transforms')
+        preds = [self._run(part, sigma)
+                 for part in extract_grids(x, plans, cs)]
+        return merge_grids(preds, plans, (t - 2 * HALO, h, w, 3), cs)
+
+    def eval_deblur(self, data_path: str, one_len: int = 48, *,
+                    grids: bool = False, crop_size: int = 256,
+                    trans_num: int = 1) -> dict:
+        """Protocol of ``test_deblur.py:91-177``; returns summary metrics.
+        ``grids`` runs each chunk through ``forward_grids``."""
         input_root = os.path.join(data_path, 'blur')
         gt_root = os.path.join(data_path, 'gt')
         totals: dict[str, dict[str, list]] = {}
         for v in sorted(os.listdir(input_root)):
             in_frames = sorted(glob.glob(os.path.join(input_root, v, '*')))
             gt_frames = sorted(glob.glob(os.path.join(gt_root, v, '*')))
-            vsc = {name: [] for name in METRICS}
+            vsc = {name: [] for name in self.metrics}
             for ch in plan_deblur_chunks(len(in_frames), one_len, HALO):
                 t0 = time.time()
                 inp = np.stack([_imread(p) for p in
@@ -223,7 +266,11 @@ class Evaluator:
                        gt_frames[ch.out_start:ch.out_stop]]
                 x = mod_crop(inp, 4).astype(np.float32) / 255.0
                 t1 = time.time()
-                out = self.forward_window(x)
+                if grids:
+                    out = self.forward_grids(x, crop_size=crop_size,
+                                             trans_num=trans_num)
+                else:
+                    out = self.forward_window(x)
                 t2 = time.time()
                 sc = self._score(out, gts, v, ch.out_start)
                 for name in vsc:
@@ -237,18 +284,21 @@ class Evaluator:
         return self._summarize(totals)
 
     def eval_denoise(self, data_path: str, sigma: float, *,
-                     tile: bool = False, seed: int = 0) -> dict:
+                     tile: bool = False, seed: int = 0, grids: bool = False,
+                     crop_size: int = 256, trans_num: int = 1) -> dict:
         """Protocol of ``test_denoise.py:91-224``: GT-only video folders,
         gaussian noise of ``sigma`` (on the 0-255 scale) drawn from
         ``np.random.default_rng(seed)`` as the JAX Evaluator draws it, so a
         seed gives both packages the same noisy clips; PSNR/SSIM against
-        the GT.  ``tile`` forces the reference's quadrant tiling."""
+        the GT.  ``tile`` forces the reference's quadrant tiling;
+        ``grids`` runs each clip through ``forward_grids`` instead, on the
+        same noise."""
         rng = np.random.default_rng(seed)
         s = sigma / 255.0
         totals: dict[str, dict[str, list]] = {}
         for v in sorted(os.listdir(data_path)):
             frames = sorted(glob.glob(os.path.join(data_path, v, '*')))
-            vsc = {name: [] for name in METRICS}
+            vsc = {name: [] for name in self.metrics}
             for ch in plan_denoise_chunks(len(frames), HALO):
                 t0 = time.time()
                 gt_clip = mod_crop(np.stack(
@@ -257,7 +307,11 @@ class Evaluator:
                 noisy = clean + rng.normal(0, s, clean.shape).astype(
                     np.float32)
                 t1 = time.time()
-                out = self.forward_window(noisy, s, quadrant=tile)
+                if grids:
+                    out = self.forward_grids(noisy, s, crop_size=crop_size,
+                                             trans_num=trans_num)
+                else:
+                    out = self.forward_window(noisy, s, quadrant=tile)
                 t2 = time.time()
                 gts = list(gt_clip[HALO:gt_clip.shape[0] - HALO])
                 sc = self._score(out, gts, v, ch.out_start)
@@ -273,11 +327,12 @@ class Evaluator:
 
     def _score(self, out: np.ndarray, gts, video: str,
                index0: int) -> dict[str, list]:
-        """Every configured metric per frame (``eval.metrics.score_pair``)."""
-        scores: dict[str, list] = {name: [] for name in METRICS}
+        """Every configured metric per frame (``eval.registry.score_pair``,
+        the reference's ``with_metrics`` loop)."""
+        scores: dict[str, list] = {name: [] for name in self.metrics}
         for i, gt in enumerate(gts):
             img = np.clip(out[i], 0.0, 1.0) * 255.0
-            for name, val in score_pair(img, gt, METRICS).items():
+            for name, val in score_pair(img, gt, self.metrics).items():
                 scores[name].append(val)
             if self.save_images:
                 from PIL import Image
@@ -296,7 +351,7 @@ class Evaluator:
                    per_video_avg: bool = False) -> dict:
         """Averages over all frames; with ``per_video_avg`` also the mean
         of the per-video averages (``<metric>_video_avg``)."""
-        names = list(METRICS)
+        names = list(self.metrics)
         sums = {n: 0.0 for n in names}
         vavg = {n: 0.0 for n in names}
         n_frames = 0

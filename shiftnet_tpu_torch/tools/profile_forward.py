@@ -2,7 +2,7 @@
 
   python -m shiftnet_tpu_torch.tools.profile_forward \
       [--variant {deblur_plus,deblur_small,denoise_plus,denoise_small}] \
-      [--config {fused_chw,conv_concat,fused_tfr,plain} ...]
+      [--config {fused_chw,conv_concat,fused_tfr,plain} ...] [--grids CROP]
 
 For each configuration given (default ``fused_chw``, the Evaluator's: every
 kernel of the port but conv_cat; ``conv_concat``: also conv_cat at rconcat
@@ -22,6 +22,10 @@ the port's ``Evaluator.forward_window`` once to warm up, then:
    port's kernels (``ops/chw``, ``ops/naf_chw``) against everything else,
    each port kernel's time, launches and share of the kernel time (every
    instantiation and form of it summed), and the top kernels.
+
+``--grids CROP`` runs each window through ``Evaluator.forward_grids`` in
+CROP-sized crops (one transform) in place of ``forward_window``: stage
+times and launches are summed over the crops.
 
 Needs a CUDA device.
 """
@@ -61,8 +65,8 @@ WINDOWS = {'deblur_plus': ((40, 720, 1280, 3), None),
 TOP = 15
 
 
-def stage_times(ev: Evaluator, clip: np.ndarray, sigma: float | None
-                ) -> tuple[dict[str, float], dict[str, int]]:
+def stage_times(ev: Evaluator, forward) -> tuple[dict[str, float],
+                                                dict[str, int]]:
     """Device ms per stage, from CUDA events recorded by forward hooks,
     and the peak allocated bytes of each stage (from the end of the stage
     before).  Repeated stages (orb1..orb5, the blocks of one Encoder2 level
@@ -90,7 +94,7 @@ def stage_times(ev: Evaluator, clip: np.ndarray, sigma: float | None
                   mod.register_forward_hook(post)]
     try:
         torch.cuda.reset_peak_memory_stats()
-        ev.forward_window(clip, sigma)
+        forward()
         torch.cuda.synchronize()
     finally:
         for h in hooks:
@@ -106,15 +110,20 @@ def stage_times(ev: Evaluator, clip: np.ndarray, sigma: float | None
 
 def profile_config(variant: str, overrides: dict, state,
                    clip: np.ndarray, sigma: float | None,
-                   result_path: str) -> None:
+                   result_path: str, grids: int | None = None) -> None:
     ev = Evaluator(variant, state, device='cuda', overrides=overrides,
                    result_path=result_path)
     print(f'== {variant} {configuration(ev.model.cfg)} {tuple(clip.shape)} '
-          f'{ev.dtype} ==', flush=True)
-    ev.forward_window(clip, sigma)
+          f'{ev.dtype}{f" grids {grids}" if grids else ""} ==', flush=True)
+
+    def forward():
+        if grids:
+            return ev.forward_grids(clip, sigma, crop_size=grids)
+        return ev.forward_window(clip, sigma)
+    forward()
     torch.cuda.synchronize()
 
-    stages, peaks = stage_times(ev, clip, sigma)
+    stages, peaks = stage_times(ev, forward)
     total = sum(stages.values())
     print(f'stages (device ms, CUDA events; {total:.1f} ms in all; peak '
           f'{max(peaks.values()) / 1e9:.3f} GB):')
@@ -125,7 +134,7 @@ def profile_config(variant: str, overrides: dict, state,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ev.forward_window(clip, sigma)
+        forward()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -172,6 +181,8 @@ def main(argv=None):
                     help='configurations to profile, in this order')
     ap.add_argument('--result_path', default='results',
                     help='directory of the evaluator log')
+    ap.add_argument('--grids', type=int, default=None, metavar='CROP',
+                    help='profile forward_grids in CROP-sized crops')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_forward: needs a CUDA device')
@@ -183,7 +194,7 @@ def main(argv=None):
     clip = np.random.default_rng(1).uniform(0, 1, window).astype(np.float32)
     for name in args.config:
         profile_config(args.variant, CONFIG_OVERRIDES[name], state, clip,
-                       sigma, args.result_path)
+                       sigma, args.result_path, args.grids)
         torch.cuda.empty_cache()
 
 

@@ -5,15 +5,23 @@ Usage:
   python -m shiftnet_tpu_torch.tools.test_deblur \\
       --variant {deblur_plus,deblur_small} --model_path ckpt.npz \\
       --data_path DeepVideoDeblurring_Dataset/GoPro --one_len 48 \\
-      [--fp32] [--save_image] [--device cuda]
+      [--fp32] [--save_image] [--device cuda] \\
+      [--metric niqe=calculate_niqe ...] [--grids [--crop_size 256] \\
+      [--trans_num 8]] [--profile DIR]
 
 ``--model_path`` takes the torch-keyed ``.npz`` exports of either package or
-a reference ``.pth`` checkpoint.
+a reference ``.pth`` checkpoint.  ``--metric`` picks metrics of
+``eval/registry.py`` by name (default PSNR and SSIM); ``--grids`` runs the
+reference's validation tiling with ``--trans_num`` rot/flip transforms per
+crop; ``--profile`` writes a ``torch.profiler`` Chrome trace into DIR.
 """
 import argparse
 
 from shiftnet_tpu_torch.eval.runner import Evaluator
 from shiftnet_tpu_torch.tools.params_io import load_state
+from shiftnet_tpu_torch.tools.test_denoise import (add_validation_args,
+                                                   parse_metric_args)
+from shiftnet_tpu_torch.utils.profiling import trace
 
 
 def main(argv=None):
@@ -27,14 +35,20 @@ def main(argv=None):
     ap.add_argument('--fp32', action='store_true')
     ap.add_argument('--save_image', action='store_true')
     ap.add_argument('--device', default='cuda')
+    add_validation_args(ap)
     args = ap.parse_args(argv)
 
     state = load_state(args.variant, args.model_path)
     ev = Evaluator(args.variant, state, device=args.device,
                    result_path=args.result_path,
                    bf16=False if args.fp32 else None,
-                   save_images=args.save_image)
-    print(ev.eval_deblur(args.data_path, one_len=args.one_len))
+                   save_images=args.save_image,
+                   metrics=parse_metric_args(args.metric))
+    with trace(args.profile):
+        res = ev.eval_deblur(args.data_path, one_len=args.one_len,
+                             grids=args.grids, crop_size=args.crop_size,
+                             trans_num=args.trans_num)
+    print(res)
 
 
 if __name__ == '__main__':

@@ -5,17 +5,51 @@ Usage:
   python -m shiftnet_tpu_torch.tools.test_denoise \\
       --variant {denoise_plus,denoise_small} --model_path ckpt.npz \\
       --data_path DAVIS-test --sigma 10 [--quadrant] [--fp32 | --bf16] \\
-      [--save_image] [--device cuda]
+      [--save_image] [--device cuda] [--metric niqe=calculate_niqe ...] \\
+      [--grids [--crop_size 256] [--trans_num 8]] [--profile DIR]
 
 ``--data_path`` holds one folder of clean frames per video; the noise of
 ``--sigma`` (0-255 scale) is drawn from ``--seed``.  ``--model_path`` takes
 the torch-keyed ``.npz`` exports of either package or a reference ``.pth``
-checkpoint.  Denoise evaluates in float32 unless ``--bf16``.
+checkpoint.  Denoise evaluates in float32 unless ``--bf16``.  ``--metric``,
+``--grids`` and ``--profile`` as in ``test_deblur``; ``--no_tile`` is the
+JAX CLI's deprecated alias of the default (the full window) and does
+nothing.
 """
 import argparse
 
 from shiftnet_tpu_torch.eval.runner import Evaluator
 from shiftnet_tpu_torch.tools.params_io import load_state
+from shiftnet_tpu_torch.utils.profiling import trace
+
+
+def add_validation_args(ap: argparse.ArgumentParser):
+    """The flags both CLIs share with the JAX CLIs
+    (``shiftnet_tpu/tools/test_denoise.py:38-49``)."""
+    ap.add_argument('--metric', action='append', default=None,
+                    help='metric registry entries, e.g. '
+                         '--metric niqe=calculate_niqe (repeatable); '
+                         'default psnr+ssim')
+    ap.add_argument('--profile', default=None,
+                    help='write a torch.profiler Chrome trace into this dir')
+    ap.add_argument('--grids', action='store_true',
+                    help='validation-style overlap-averaged crop tiling '
+                         '(reference image_restoration_model.py:161-252)')
+    ap.add_argument('--crop_size', type=int, default=256)
+    ap.add_argument('--trans_num', type=int, default=1,
+                    help='number of rot/flip TTA transforms per crop (1-8)')
+
+
+def parse_metric_args(entries):
+    """['niqe=calculate_niqe', 'psnr'] -> the registry's metric dict, None
+    without entries (``shiftnet_tpu/tools/test_denoise.py:67-77``)."""
+    if not entries:
+        return None
+    out = {}
+    for e in entries:
+        name, _, typ = e.partition('=')
+        out[name] = {'type': typ or name}
+    return out
 
 
 def main(argv=None):
@@ -34,17 +68,25 @@ def main(argv=None):
     prec.add_argument('--fp32', action='store_true',
                       help='float32 (the denoise default)')
     prec.add_argument('--bf16', action='store_true')
+    ap.add_argument('--no_tile', action='store_true',
+                    help='deprecated alias: the full window is the default')
     ap.add_argument('--save_image', action='store_true')
     ap.add_argument('--device', default='cuda')
+    add_validation_args(ap)
     args = ap.parse_args(argv)
 
     state = load_state(args.variant, args.model_path)
     ev = Evaluator(args.variant, state, device=args.device,
                    result_path=args.result_path,
                    bf16=True if args.bf16 else None,
-                   save_images=args.save_image)
-    print(ev.eval_denoise(args.data_path, args.sigma, tile=args.quadrant,
-                          seed=args.seed))
+                   save_images=args.save_image,
+                   metrics=parse_metric_args(args.metric))
+    with trace(args.profile):
+        res = ev.eval_denoise(args.data_path, args.sigma, tile=args.quadrant,
+                              seed=args.seed, grids=args.grids,
+                              crop_size=args.crop_size,
+                              trans_num=args.trans_num)
+    print(res)
 
 
 if __name__ == '__main__':

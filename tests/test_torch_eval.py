@@ -22,7 +22,7 @@ from shiftnet_tpu.eval import window as jwindow
 from shiftnet_tpu.eval.window import half_slices
 from shiftnet_tpu.models import build_model as jax_build_model
 from shiftnet_tpu.tools.convert_torch import torch_state_to_flax
-from shiftnet_tpu_torch.eval import metrics, window
+from shiftnet_tpu_torch.eval import metrics, registry, window
 from shiftnet_tpu_torch.eval.runner import (CONFIG_OVERRIDES, METRICS,
                                             WINDOW_BYTES_PER_PX, Evaluator,
                                             _imread, configuration)
@@ -245,5 +245,5 @@ def test_port_metrics_match_jax():
     assert metrics.psnr(img, gt) == jmetrics.psnr(img, gt)
     assert metrics.ssim(img, gt) == jmetrics.ssim(img, gt)
     assert metrics.psnr(gt, gt) == float('inf')
-    assert (metrics.score_pair(img, gt, METRICS)
+    assert (registry.score_pair(img, gt, METRICS)
             == jregistry.score_pair(img, gt, METRICS))
