@@ -82,6 +82,21 @@ Phases, each of which must pass:
 10. bench: the port's bench entry point (``shiftnet_tpu_torch/tools/
    bench.py``, deblur_plus 720p) with one timed window; its JSON line must
    parse.
+11. train: single-GPU training (``shiftnet_tpu_torch/train``).  f32
+   gradients of the fused model (kernels forward, ``ops/chw_grad``'s plain
+   twins backward) against the all-plain model at full width on a modest
+   clip, deblur_plus and denoise_small (the whole gradient's relative L2
+   error; each beside the float64 plain model's gradient, with float32
+   plain's own error); after one AdamW step on the fused
+   path, its forward on the kernels against the plain forward of the
+   updated weights (the kept weight panels must follow the step); then
+   ``tools/train.py -opt configs/gopro_deblur.yml`` on a synthetic
+   23-frame folder at patch 256: 4 steps unfused and 4 with ``fused:
+   true``, each with its s/step (median of the steps after the first),
+   peak memory and losses, the fused step's kernel launches held against
+   the forward's plus the checkpoint recompute's; a resume that logs
+   "auto-resumed from step 4" and continues; two steps of
+   ``configs/davis_denoise.yml`` (denoise_plus, T = 15, patch 192).
 
 The line before the last is a JSON object with each kernel's launches on
 every driven path, its error, its times and its bound; the last line is
@@ -1526,6 +1541,255 @@ def bench_phase():
     return rec
 
 
+# Kernel launches of one fused deblur_plus train step: the forward
+# (MAIN_PATH_LAUNCHES) and the checkpoint recompute of the 10 orbs
+# (TFR_PATH_LAUNCHES) and of the 7 shift blocks' 28 round pairs (56 shift
+# rounds, each CAB2 + CAB1 x 3 kernels); the backward runs the plain twins.
+SHIFT_BLOCK_LAUNCHES = {'shift_round': 56, 'naf_gate': 112, 'naf_rep': 112,
+                        'naf_back': 112}
+TRAIN_FUSED_LAUNCHES = {
+    k: MAIN_PATH_LAUNCHES[k] + TFR_PATH_LAUNCHES[k]
+    + SHIFT_BLOCK_LAUNCHES.get(k, 0) for k in MAIN_PATH_LAUNCHES}
+# The gradient check's clips (modest: full width and depth, small frames)
+# and the published training shapes the CLI runs.
+TRAIN_GRAD_CLIP = {'deblur_plus': (5, 64, 64), 'denoise_small': (4, 64, 64)}
+TRAIN_STEPS = 4
+
+
+def _train_grads(variant, state, batch, draws, fused,
+                 dtype_name='float32'):
+    """One port train step (lr 1e-3) of ``variant`` in ``dtype_name``: its
+    gradients, loss and model (weights updated)."""
+    import torch
+    from shiftnet_tpu_torch.models import build_model
+    from shiftnet_tpu_torch.train import optim
+    from shiftnet_tpu_torch.train.step import TaskConfig, train_step
+    dt = getattr(torch, dtype_name)
+    model = build_model(variant, fused_chw=fused).cuda().to(dt)
+    model.load_state_dict(state)
+    cfg = model.cfg
+    task = TaskConfig(kind='denoise' if cfg.noise_map else 'deblur',
+                      center_slice=(cfg.past_frames, cfg.future_frames),
+                      dtype=dt)
+    opt = optim.build_optimizer(model, optim.OptimConfig(lr=1e-3))
+    m = train_step(model, opt, task, {k: v.to(dt) for k, v in batch.items()},
+                   None, draws=draws and tuple(v.to(dt) for v in draws))
+    grads = {k: p.grad.double() for k, p in model.named_parameters()}
+    return grads, float(m['loss']), model
+
+
+def _grad_errs(a, b):
+    """(relative L2 error of the whole gradient, max error over the RMS of
+    the whole gradient, worst leaf's max error over its own RMS)."""
+    d2 = sum(float((a[k] - b[k]).square().sum()) for k in b)
+    n2 = sum(float(b[k].square().sum()) for k in b)
+    n = sum(b[k].numel() for k in b)
+    mx = max(float((a[k] - b[k]).abs().max()) for k in b)
+    leaf = max(float((a[k] - b[k]).abs().max()
+                     / b[k].square().mean().sqrt().clamp_min(1e-300))
+               for k in b)
+    return np.sqrt(d2 / n2), mx / np.sqrt(n2 / n), leaf
+
+
+def _train_grad_check(variant, card):
+    """f32 gradients on the kernels against the all-plain model, each also
+    against the all-plain model in float64; and the fused forward after
+    the step against the plain forward of the updated weights.
+
+    The gradient tolerance is on the relative L2 error of the whole
+    gradient.  A max error is no measure here: at full depth the plain
+    float32 gradient is itself 1.5e-3 (deblur_plus) to 4.9e-3
+    (denoise_small) of the gradient's RMS from the float64 one in its
+    worst element (single PReLU / ReLU inputs within rounding of their
+    kink), so the line prints it, beside float32's own, for information."""
+    import torch
+    from shiftnet_tpu_torch.models import build_model, init_state
+    from shiftnet_tpu_torch.ops import chw
+    from shiftnet_tpu_torch.train.step import TaskConfig, draw_noise
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = init_state(build_model(variant), seed=0)
+    t, h, w = TRAIN_GRAD_CLIP[variant]
+    rng = np.random.default_rng(21)
+    gt = torch.from_numpy(rng.uniform(0, 1, (1, t, 3, h, w)).astype(
+        np.float32)).cuda()
+    batch, draws = {'gt': gt}, None
+    if build_model(variant).cfg.noise_map:
+        gen = torch.Generator(device='cuda').manual_seed(3)
+        draws = draw_noise(gt, TaskConfig(kind='denoise'), gen)
+    else:
+        batch['lq'] = (gt + 0.05 * torch.randn_like(gt)).clamp(0, 1)
+    chw.reset_launches()
+    g_k, loss_k, fused = _train_grads(variant, state, batch, draws, True)
+    launches = sum(chw.LAUNCHES.values())
+    g_p, loss_p, _ = _train_grads(variant, state, batch, draws, False)
+    g_64 = _train_grads(variant, state, batch, draws, False, 'float64')[0]
+    err = _grad_errs(g_k, g_p)
+    floor = _grad_errs(g_p, g_64)
+    k64 = _grad_errs(g_k, g_64)
+    # the fused forward after the step (no grad: the kernel ops, their
+    # weight panels kept on the updated parameters) vs the plain forward
+    x = (batch['lq'] if 'lq' in batch else gt + draws[1])[0]
+    nm = None
+    if draws is not None:
+        nm = draws[0].view(1, 1, 1, 1).expand(t, 1, h, w)
+    plain = build_model(variant).cuda()
+    with torch.no_grad():
+        plain.load_state_dict(state)
+        before = plain(x, nm)
+        plain.load_state_dict(fused.state_dict())
+        chw.reset_launches()
+        out_k = fused(x, nm)
+        after_launches = sum(chw.LAUNCHES.values())
+        out_p = plain(x, nm)
+    step_err = _norm_err(out_k, out_p)[0]
+    moved = _norm_err(out_k, before)[0]
+    print(f'train: {variant} f32 {t}x{h}x{w} gradients on the kernels vs '
+          f'all-plain: relative L2 {err[0]:.3e} (tol {SLICE_TOL_F32:.0e}), '
+          f'max / RMS {err[1]:.3e}, worst leaf {err[2]:.3e}; against the '
+          f'float64 plain: kernels {k64[0]:.3e} / {k64[1]:.3e} / '
+          f'{k64[2]:.3e}, float32 plain {floor[0]:.3e} / {floor[1]:.3e} / '
+          f'{floor[2]:.3e}; loss {loss_k:.6f} vs {loss_p:.6f}; {launches} '
+          f'kernel launches; after one AdamW step: fused forward vs plain '
+          f'forward of the updated weights err {step_err:.3e} (tol '
+          f'{SLICE_TOL_F32:.0e}), vs the weights before the step '
+          f'{moved:.3e}, {after_launches} launches [{card}]', flush=True)
+    if not (err[0] <= SLICE_TOL_F32 and step_err <= SLICE_TOL_F32
+            and moved > 10 * step_err and launches and after_launches):
+        raise AssertionError(f'{variant}: training on the kernels disagrees '
+                             'with the plain model')
+    del g_k, g_p, g_64, fused, plain
+    torch.cuda.empty_cache()
+    return err
+
+
+def _write_clip_folder(root, subs, n_frames, h, w, seed):
+    """One synthetic video of PNG frames under each ``root/<sub>``."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 255, (h, w, 3))
+    for i in range(n_frames):
+        img = np.clip(base + rng.integers(-12, 12, (h, w, 3)), 0, 255)
+        for sub in subs:
+            d = os.path.join(root, sub, 'clip1')
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(d, f'{i:03d}.png'))
+
+
+def _train_cli(config, tmp, data, changes, card, label, count=False):
+    """``tools/train.main(['-opt', <a copy of configs/<config> with
+    changes>])`` with each step fenced by ``torch.cuda.synchronize()`` and
+    timed; returns (trainer, step times, losses, peak, launches of the last
+    step)."""
+    import torch
+    import yaml
+    from shiftnet_tpu_torch.ops import chw
+    from shiftnet_tpu_torch.tools import train as train_cli
+    from shiftnet_tpu_torch.train import trainer as trainer_mod
+    with open(os.path.join('configs', config)) as f:
+        opt = yaml.safe_load(f)
+    opt['datasets']['train']['dir_data'] = data
+    opt['experiments_root'] = os.path.join(tmp, 'exp')
+    opt['logger'] = dict(opt['logger'], print_freq=1)
+    for k, v in changes.items():
+        if k == 'total_iter':
+            opt['train']['total_iter'] = v
+        else:
+            opt[k] = v
+    path = os.path.join(tmp, f'{label}.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(opt, f)
+    times, losses, last = [], [], {}
+    step = trainer_mod.train_step
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        chw.reset_launches()
+        t0 = time.perf_counter()
+        m = step(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        last.update(chw.LAUNCHES)
+        losses.append(float(m['loss']))
+        return m
+
+    trainer_mod.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        tr = train_cli.main(['-opt', path])
+    finally:
+        trainer_mod.train_step = step
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:]) if len(times) > 1 else float('nan')
+    print(f'train: {label}: {config} {tr.opt["model"]} T={opt["n_sequence"]} '
+          f'patch {opt["patch_size"]} {tr.task.dtype} '
+          f'{"fused" if tr.model.cfg.fused_chw else "plain"}, steps '
+          f'{tr.step - len(times) + 1}..{tr.step}: '
+          f'{med:.4f} s/step (median after the first; steps '
+          f'{", ".join(f"{t:.4f}" for t in times)} s), peak '
+          f'{peak / 1e9:.3f} GB, losses '
+          f'{", ".join(f"{v:.5f}" for v in losses)} [{card}]', flush=True)
+    if not (losses and all(np.isfinite(losses))):
+        raise AssertionError(f'{label}: non-finite loss {losses}')
+    return tr, times, losses, peak, dict(last) if count else None
+
+
+def train_phase(card):
+    """Single-GPU training: gradients and the post-step forward on the
+    kernels against the plain model; the train CLI on the published
+    gopro_deblur shape, unfused and fused, with a resume; two davis_denoise
+    steps.  Returns the fused train step's launches."""
+    for variant in TRAIN_GRAD_CLIP:
+        _train_grad_check(variant, card)
+    return _train_runs(card)
+
+
+def _train_runs(card):
+    """The train CLI runs of the train phase; returns the fused step's
+    launches."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        gopro = os.path.join(tmp, 'gopro')
+        _write_clip_folder(gopro, ('gt', 'blur'), 24, 288, 320, seed=31)
+        runs = {}
+        for label, fused in (('gopro_unfused', False),
+                             ('gopro_fused', True)):
+            runs[label] = _train_cli(
+                'gopro_deblur.yml', tmp, gopro,
+                {'total_iter': TRAIN_STEPS, 'fused': fused, 'name': label},
+                card, label, count=fused)
+            del runs[label][0].model, runs[label][0].optimizer
+            torch.cuda.empty_cache()
+        launches = runs['gopro_fused'][4]
+        print(f'train: fused deblur_plus step launches {launches} '
+              f'(expected {TRAIN_FUSED_LAUNCHES})', flush=True)
+        if launches != TRAIN_FUSED_LAUNCHES:
+            raise AssertionError('the fused train step did not run on the '
+                                 'kernels as expected')
+        tr = _train_cli('gopro_deblur.yml', tmp, gopro,
+                        {'total_iter': TRAIN_STEPS + 2, 'fused': False,
+                         'name': 'gopro_unfused'}, card, 'gopro_resume')[0]
+        log = open(os.path.join(tmp, 'exp', 'gopro_unfused', 'train.log')
+                   ).read()
+        if ('auto-resumed from step 4' not in log
+                or tr.step != TRAIN_STEPS + 2):
+            raise AssertionError('the resumed run did not continue from '
+                                 'step 4')
+        print(f'train: gopro_resume: auto-resumed from step {TRAIN_STEPS}, '
+              f'finished at step {tr.step}', flush=True)
+        del tr
+        torch.cuda.empty_cache()
+        davis = os.path.join(tmp, 'davis')
+        _write_clip_folder(davis, ('480p',), 16, 240, 256, seed=32)
+        _train_cli('davis_denoise.yml', tmp, davis,
+                   {'total_iter': 2, 'name': 'davis'}, card, 'davis')
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     card = device_phase()
     build_phase()
@@ -1549,6 +1813,9 @@ def main():
     t0 = time.perf_counter()
     bench_phase()
     print(f'bench: phase took {time.perf_counter() - t0:.1f} s', flush=True)
+    t0 = time.perf_counter()
+    launches['train_deblur_plus_fused'] = train_phase(card)
+    print(f'train: phase took {time.perf_counter() - t0:.1f} s', flush=True)
     kernels = []
     for name, (src, repl, also, counter, main_path) in KERNELS.items():
         r = rec[name]

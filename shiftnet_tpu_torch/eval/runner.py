@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from shiftnet_tpu_torch.data.video_dataset import _imread
 from shiftnet_tpu_torch.eval.grids import (extract_grids, merge_grids,
                                            plan_grids)
 from shiftnet_tpu_torch.eval.registry import METRIC_FUNCS, score_pair
@@ -91,16 +92,6 @@ CONFIG_OVERRIDES = {
     'fused_tfr': {'fused_chw': False, 'fused_tfr': True,
                   'conv_concat': False},
     'plain': {'fused_chw': False, 'fused_tfr': False, 'conv_concat': False}}
-
-
-def _imread(path: str) -> np.ndarray:
-    """An RGB uint8 frame, grey and alpha dropped as in
-    ``shiftnet_tpu/data/video_dataset.py:_imread``.  Read with Pillow, the
-    decoder imageio uses there for PNG and JPEG (the GPU machine has Pillow
-    and no imageio)."""
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.asarray(im.convert('RGB'))
 
 
 class EvalLogger:

@@ -19,6 +19,12 @@ deblur_small add-fuse (``final_fuse_concat=False``) and no boundary patch.
 With ``cfg.conv_concat`` (fused path only, as in JAX) rconcat, and conv_hr0
 where it reads a concat, run as one ``conv_cat`` launch each over their
 unconcatenated inputs.
+
+While autograd records (training), each TFR U-Net of the orb chains is a
+``torch.utils.checkpoint`` (non-reentrant) region, JAX's remat boundary
+(``shiftnet_tpu/models/gshift.py:397``), as is each shift-block round pair
+(``layers.EncoderShiftBlock``), and the fused modules run through
+``ops/chw_grad``.  Inference is unchanged.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import hashlib
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from shiftnet_tpu_torch.models.config import CONFIGS, GShiftNetConfig
 from shiftnet_tpu_torch.models.layers import (CAB, Conv2d, ConvPReLU,
@@ -46,8 +53,8 @@ class Encoder2(nn.Module):
     by PReLU -> bias-free conv_hr0 -> add (``final_fuse_concat=False``)
     instead of a conv over the concat.
 
-    On the fused path the CABs of the level chains write over their input,
-    which is dead there: each chain starts on the fresh output of a conv.
+    On the fused inference path the CABs of the level chains write over
+    their input, which is dead there: each chain starts on the fresh output of a conv.
     ``concat``'s output is read by both ``skip_conv`` and the next stage,
     and enc11 / enc22 by ``skip_attn1`` / ``skip_attn2`` and the next down
     conv, so the CABs that read those write fresh outputs.  A ShiftCAB or
@@ -200,7 +207,9 @@ class GShiftNet(nn.Module):
 
     def _orbs(self, prefix: str, y):
         for i in range(self.cfg.num_orbs):
-            y = self.get_submodule(f'{prefix}{i + 1}')(y)
+            orb = self.get_submodule(f'{prefix}{i + 1}')
+            y = (checkpoint(orb, y, use_reentrant=False)
+                 if torch.is_grad_enabled() else orb(y))
         return y
 
     def forward(self, x, noise_map=None):
@@ -242,6 +251,14 @@ class GShiftNet(nn.Module):
 def build_model(name: str, **overrides) -> GShiftNet:
     cfg = CONFIGS[name].replace(**overrides) if overrides else CONFIGS[name]
     return GShiftNet(cfg)
+
+
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Fill ``model``'s parameters in place with ``init_state(model,
+    seed)``, the port's seeded parameter init (the role of
+    ``shiftnet_tpu/models/__init__.py:init_params``); returns the model."""
+    model.load_state_dict(init_state(model, seed), strict=True)
+    return model
 
 
 def init_state(model: nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:

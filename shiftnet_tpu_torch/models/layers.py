@@ -13,18 +13,30 @@ building a model touches no global RNG state.
 
 Modules built with ``fused=True`` (the ``fused_chw`` configuration) run on
 the CUDA kernels of ``ops/chw`` and ``ops/naf_chw``, or on their plain
-versions for CPU tensors; the others are the plain path.
+versions for CPU tensors; the others are the plain path.  While autograd
+records (``torch.is_grad_enabled()``, training), the fused modules go
+through the autograd Functions of ``ops/chw_grad`` instead: the same kernels
+forward, never in place, and the plain twins' autograd backward.  Without
+grad (inference) they run the kernel ops directly, writing in place where a
+caller knows its input is dead.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from shiftnet_tpu_torch.ops import chw, naf_chw
+from shiftnet_tpu_torch.ops import chw, chw_grad, naf_chw
 from shiftnet_tpu_torch.ops.norm import layer_norm_2d
 from shiftnet_tpu_torch.ops.resize import bilinear_up2x, pixel_shuffle
 from shiftnet_tpu_torch.ops.shift import gsts, temporal_channel_shift
+
+
+def kernel_ops():
+    """The fused modules' op set: ``ops/chw_grad`` while autograd records,
+    else ``ops/chw`` (inference)."""
+    return chw_grad if torch.is_grad_enabled() else chw
 
 
 class Conv2d(nn.Module):
@@ -52,7 +64,7 @@ class Conv2d(nn.Module):
     def forward(self, x):
         if self.fused:
             b = None if self.bias is None else self.bias.to(x.dtype).float()
-            return chw.conv(x, self.weight, b, None, self.stride)
+            return kernel_ops().conv(x, self.weight, b, None, self.stride)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
                         self.padding, groups=self.groups)
@@ -72,9 +84,10 @@ class Conv2d(nn.Module):
         dt = xs[0].dtype
         b = None if self.bias is None else self.bias.to(dt).float()
         a = None if alpha is None else alpha.to(dt).float()
+        ops = kernel_ops()
         if virtual:
-            return chw.conv_concat(xs, self.weight, b, a)
-        return chw.conv(torch.cat(xs, dim=1), self.weight, b, a, self.stride)
+            return ops.conv_concat(xs, self.weight, b, a)
+        return ops.conv(torch.cat(xs, dim=1), self.weight, b, a, self.stride)
 
 
 class PReLU(nn.Module):
@@ -100,8 +113,8 @@ class ConvPReLU(nn.Sequential):
         if not conv.fused:
             return act(conv(x))
         b = None if conv.bias is None else conv.bias.to(x.dtype).float()
-        return chw.conv(x, conv.weight, b, act.weight.to(x.dtype).float(),
-                        conv.stride)
+        return kernel_ops().conv(x, conv.weight, b,
+                                 act.weight.to(x.dtype).float(), conv.stride)
 
 
 class LayerNorm2d(nn.Module):
@@ -192,11 +205,14 @@ class CAB(nn.Module):
         self.CA = CALayer(n_feat, reduction, bias=bias)
 
     def forward(self, x, inplace: bool = False):
-        """``inplace``: the fused path writes the result over x, for callers
-        that know x is dead; the plain path ignores it."""
+        """``inplace``: the fused inference path writes the result over x,
+        for callers that know x is dead; the plain path and training ignore
+        it."""
         if self.fused:
-            return chw.cab(dict(self.named_parameters()), '', x,
-                           inplace=inplace)
+            p = dict(self.named_parameters())
+            if torch.is_grad_enabled():
+                return chw_grad.cab(p, '', x)
+            return chw.cab(p, '', x, inplace=inplace)
         return self.CA(self.body(x)) + x
 
 
@@ -205,7 +221,8 @@ class ShiftCAB(CAB):
     half-channel shift with boundary patch, then a plain CAB, with the
     residual to the *shifted* input.  The shift is plain torch on both paths
     (XLA glue on the JAX fused path too); with ``fused`` the CAB runs on
-    ``ops.chw.cab`` and writes over the fresh shifted tensor."""
+    ``ops.chw.cab`` and, at inference, writes over the fresh shifted
+    tensor."""
 
     def __init__(self, n_feat: int, kernel_size: int = 3, reduction: int = 4,
                  *, reverse: bool = False, fused: bool = False):
@@ -283,8 +300,8 @@ class DownSample(nn.Module):
 
     def forward(self, x):
         if self.fused:
-            return chw.down(dict(self.named_parameters()), '', x,
-                            with_prelu=self.with_prelu)
+            return kernel_ops().down(dict(self.named_parameters()), '', x,
+                                     with_prelu=self.with_prelu)
         return self.down(x)
 
 
@@ -306,7 +323,7 @@ class SkipUpSample(nn.Module):
 
     def forward(self, x, skip):
         if self.fused:
-            return chw.up_skip(x, self.up[1].weight, skip)
+            return kernel_ops().up_skip(x, self.up[1].weight, skip)
         return self.up(x) + skip
 
 
@@ -359,8 +376,9 @@ class TFRUNet(nn.Module):
 
     def forward(self, x):
         if self.fused:
-            return chw.tfr_unet(dict(self.named_parameters()), x,
-                                downsample_prelu=self.downsample_prelu)
+            return kernel_ops().tfr_unet(
+                dict(self.named_parameters()), x,
+                downsample_prelu=self.downsample_prelu)
         enc1 = self.encoder_level1(x)
         enc2 = self.encoder_level2(self.down12(enc1))
         dec3 = self.decoder_level3(self.encoder_level3(self.down23(enc2)))
@@ -372,7 +390,12 @@ class EncoderShiftBlock(nn.Module):
     """``Encoder_shift_block`` (``gshift_deblur1.py:440-547``): ``rounds``
     iterations of GSTS (forward, then reverse, alternating) -> CAB2 -> CAB1.
     Round r's blocks are ``encoder_level1{_r}.0`` (CAB2) and ``.1`` (CAB1).
-    With ``fused`` it runs on ``ops.naf_chw.encoder_shift_block``."""
+    With ``fused`` it runs on ``ops.naf_chw.encoder_shift_block``.
+
+    While autograd records, each (forward, reverse) round pair is a
+    ``torch.utils.checkpoint`` (non-reentrant) region, JAX's remat boundary
+    (``shiftnet_tpu/models/layers.py:670``); an odd number of rounds runs
+    unrolled, as there."""
 
     def __init__(self, n_feat: int, *, rounds: int = 8, reduction: int = 4,
                  boundary_patch: bool = True, mid_ca: bool = False,
@@ -394,16 +417,33 @@ class EncoderShiftBlock(nn.Module):
                 CAB2(n_feat, add_c, **kw), CAB1(n_feat, **kw)))
 
     def forward(self, x):
-        if self.fused:
-            return naf_chw.encoder_shift_block(
-                dict(self.named_parameters()), x, rounds=self.rounds,
-                boundary_patch=self.boundary_patch, mid_ca=self.mid_ca,
-                last_bias=self.last_bias)
-        for r in range(self.rounds):
+        if not torch.is_grad_enabled():
+            if self.fused:
+                return naf_chw.encoder_shift_block(
+                    dict(self.named_parameters()), x, rounds=self.rounds,
+                    boundary_patch=self.boundary_patch, mid_ca=self.mid_ca,
+                    last_bias=self.last_bias)
+            return self._rounds(x, 0, self.rounds)
+        if self.rounds % 2:
+            return self._rounds(x, 0, self.rounds)
+        for r in range(0, self.rounds, 2):
+            x = checkpoint(self._rounds, x, r, r + 2, use_reentrant=False)
+        return x
+
+    def _rounds(self, x, start: int, stop: int):
+        """Rounds start .. stop - 1 (fused: through ``ops/chw_grad``)."""
+        p = dict(self.named_parameters()) if self.fused else None
+        for r in range(start, stop):
+            name = 'encoder_level1' if r == 0 else f'encoder_level1_{r}'
+            if self.fused:
+                x = chw_grad.shift_block_round(
+                    p, name, x, reverse=r % 2 == 1,
+                    boundary_patch=self.boundary_patch, mid_ca=self.mid_ca,
+                    last_bias=self.last_bias)
+                continue
             y, hw = gsts(x, self.number, reverse=r % 2 == 1,
                          boundary_patch=self.boundary_patch)
-            cab2, cab1 = self.get_submodule(
-                'encoder_level1' if r == 0 else f'encoder_level1_{r}')
+            cab2, cab1 = self.get_submodule(name)
             x = cab1(cab2(y, hw))
             del y, hw
         return x

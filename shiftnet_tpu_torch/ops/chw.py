@@ -72,6 +72,16 @@ def _check(name: str, x: torch.Tensor, *same_type: torch.Tensor | None,
     return _DTYPE_CODE[x.dtype]
 
 
+def check_inplace(name: str, x: torch.Tensor, inplace: bool) -> None:
+    """A kernel writes through a raw pointer, which bumps no version
+    counter: an in-place write over a tensor autograd may have saved would
+    give silently wrong gradients.  So no op writes in place over a tensor
+    that requires grad."""
+    if inplace and x.requires_grad:
+        raise RuntimeError(f'{name}: in-place write over a tensor that '
+                           'requires grad')
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -296,6 +306,7 @@ def cab_back(x: torch.Tensor, s: torch.Tensor, ca: torch.Tensor, *,
     add.  ``inplace`` writes over x: only for callers that know x is dead
     afterwards.  The kernel's route, 16-byte units or single elements, is
     ``cab_back_route``'s."""
+    check_inplace('cab_back', x, inplace)
     if not _on_cuda(x):
         return cab_back_plain(x, s, ca, inplace)
     code = _check('cab_back', x, s, ca)
@@ -598,12 +609,26 @@ def cab(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,
         inplace: bool = False) -> torch.Tensor:
     """Plain CAB (``layers.CAB``) as cab_front -> ca_mlp -> cab_back.
     ``p`` holds torch-named parameters; ``name`` is the CAB's prefix."""
+    return _cab(p, name, x, cab_front,
+                lambda x, s, ca: cab_back(x, s, ca, inplace=inplace))
+
+
+def cab_plain(p: dict[str, torch.Tensor], name: str,
+              x: torch.Tensor) -> torch.Tensor:
+    """``cab`` on the plain versions, the weights rounded as the kernels
+    round them: the twin that ``ops/chw_grad`` differentiates."""
+    return _cab(p, name, x,
+                lambda x, w1, a, w2: cab_front_plain(
+                    x, w1.to(x.dtype), a, w2.to(x.dtype)), cab_back_plain)
+
+
+def _cab(p, name, x, front, back):
     k = prefix(name)
-    s, sums = cab_front(x, p[f'{k}body.0.weight'], p[f'{k}body.1.weight'],
-                        p[f'{k}body.2.weight'])
+    s, sums = front(x, p[f'{k}body.0.weight'], p[f'{k}body.1.weight'],
+                    p[f'{k}body.2.weight'])
     ca = ca_mlp(sums, x.shape[2] * x.shape[3], p[f'{k}CA.conv_du.0.weight'],
                 p[f'{k}CA.conv_du.2.weight'], x.dtype)
-    return cab_back(x, s, ca, inplace=inplace)
+    return back(x, s, ca)
 
 
 def down(p: dict[str, torch.Tensor], name: str, x: torch.Tensor, *,

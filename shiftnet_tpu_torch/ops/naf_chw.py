@@ -33,14 +33,16 @@ the products g * cag and s * ca are taken in the compute type.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from shiftnet_tpu_torch.ops import _build
 from shiftnet_tpu_torch.ops.chw import (LAUNCHES, SMEM_BYTES, _check, _on_cuda,
                                         _pick_tile, _stream, ca_mlp,
-                                        cm_pitch, mma_layout, mma_pitch,
-                                        pack_taps, prefix)
+                                        check_inplace, cm_pitch, mma_layout,
+                                        mma_pitch, pack_taps, prefix)
 from shiftnet_tpu_torch.ops.shift import gsts
 
 LN_EPS = 1e-6
@@ -57,8 +59,8 @@ def _col(v: torch.Tensor) -> torch.Tensor:
 # -- host-side weights ---------------------------------------------------------
 
 def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
-             mid_ca: bool = False,
-             last_bias: bool = False) -> dict[str, torch.Tensor | None]:
+             mid_ca: bool = False, last_bias: bool = False,
+             panels: bool = True) -> dict[str, torch.Tensor | None]:
     """Kernel-side weights of one CAB2 / CAB1 from its torch-named
     parameters (prefix ``name``), the counterpart of
     ``shiftnet_tpu/ops/naf_chw.py:prep_naf_weights`` (with
@@ -91,11 +93,18 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
       ``rep`` on the CUDA cores);
     - ``w7_p`` (1, n, mma_pitch(n)): naf_back's projection, output
       channels in order.
+
+    ``panels=False`` is the differentiable form, the backward's twin of the
+    kernels' weights: the same values, computed from the parameters
+    themselves (not detached), so that autograd carries the LayerNorm fold
+    and the RepConv merge back to ``norm.*`` and both RepConv branches;
+    no panels (the plain versions read none).
     """
     k = prefix(name)
 
     def q(key: str) -> torch.Tensor:
-        return p[k + key].detach().to(dtype).float()
+        v = p[k + key]
+        return (v.detach() if panels else v).to(dtype).float()
 
     off = 1 if mid_ca else 0
     w0 = q('body.0.weight').flatten(1)  # (2n, cin)
@@ -114,8 +123,7 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
     wg = (w0 * gamma).t().to(dtype).float().contiguous()
     w4 = q(f'body.{4 + off}.weight').flatten(1).t().contiguous()
     w7 = q(f'body.{7 + off}.weight').flatten(1).t().contiguous()
-    size = torch.empty((), dtype=dtype).element_size()
-    return {
+    prep = {
         'wg': wg,
         'c1': w0 @ gamma,
         'c2': w0 @ beta_ln,
@@ -127,14 +135,19 @@ def prep_naf(p: dict[str, torch.Tensor], name: str, dtype: torch.dtype, *,
         'w7': w7,
         'beta': q('beta').flatten(),
         'b7': q(f'body.{7 + off}.bias') if last_bias else None,
-        'wg_p': pack_taps(wg.t()[:, :, None, None].to(dtype), 2 * n,
-                          mma_pitch(wg.shape[0], size)),
-        'w4_p': pack_taps(w4.t()[gate_rows(n), :, None, None].to(dtype),
-                          2 * n, mma_pitch(n, size)),
-        'rep_p': pack_groups(rep.to(dtype)) if cin_g == 8 else None,
-        'w7_p': pack_taps(w7.t()[:, :, None, None].to(dtype),
-                          *mma_layout(n, n, size)),
     }
+    if not panels:
+        return prep
+    size = torch.empty((), dtype=dtype).element_size()
+    prep.update(
+        wg_p=pack_taps(wg.t()[:, :, None, None].to(dtype), 2 * n,
+                       mma_pitch(wg.shape[0], size)),
+        w4_p=pack_taps(w4.t()[gate_rows(n), :, None, None].to(dtype),
+                       2 * n, mma_pitch(n, size)),
+        rep_p=pack_groups(rep.to(dtype)) if cin_g == 8 else None,
+        w7_p=pack_taps(w7.t()[:, :, None, None].to(dtype),
+                       *mma_layout(n, n, size)))
+    return prep
 
 
 def gate_rows(n: int) -> torch.Tensor:
@@ -378,6 +391,7 @@ def naf_back(y: torch.Tensor, s: torch.Tensor, ca: torch.Tensor, prep: dict,
              *, inplace: bool = False) -> torch.Tensor:
     """out = y + beta * (w7 . (s * ca) + b7).  ``ca``: (T, n) in y's type.
     ``inplace`` writes over y: only for callers that know y is dead."""
+    check_inplace('naf_back', y, inplace)
     if not _on_cuda(y):
         return naf_back_plain(y, s, ca, prep, inplace)
     w7, w7_p, beta, b7 = prep['w7'], prep['w7_p'], prep['beta'], prep['b7']
@@ -414,21 +428,37 @@ def naf_cab(p: dict[str, torch.Tensor], name: str, y: torch.Tensor,
     ``shiftnet_tpu/ops/naf_chw.py:naf_cab_chw``.  ``p`` holds torch-named
     parameters, ``name`` is the block's prefix.  ``inplace`` writes the
     result over y."""
+    return _naf_cab(p, name, y, hw, mid_ca, last_bias, naf_gate, naf_rep,
+                    functools.partial(naf_back, inplace=inplace), True)
+
+
+def naf_cab_plain(p: dict[str, torch.Tensor], name: str, y: torch.Tensor,
+                  hw: torch.Tensor | None = None, *, mid_ca: bool = False,
+                  last_bias: bool = False) -> torch.Tensor:
+    """``naf_cab`` on the plain versions from the differentiable weights
+    (``prep_naf(panels=False)``): the same function, which autograd
+    differentiates back to every raw parameter (``ops/chw_grad``)."""
+    return _naf_cab(p, name, y, hw, mid_ca, last_bias, naf_gate_plain,
+                    naf_rep_plain, naf_back_plain, False)
+
+
+def _naf_cab(p, name, y, hw, mid_ca, last_bias, gate, rep, back, panels):
     dt = y.dtype
     k = prefix(name)
     off = 1 if mid_ca else 0
     n_px = y.shape[2] * y.shape[3]
-    prep = prep_naf(p, name, dt, mid_ca=mid_ca, last_bias=last_bias)
-    g, gsums = naf_gate(y, hw, prep)
+    prep = prep_naf(p, name, dt, mid_ca=mid_ca, last_bias=last_bias,
+                    panels=panels)
+    g, gsums = gate(y, hw, prep)
     cag = None
     if mid_ca:
         cag = ca_mlp(gsums, n_px, p[f'{k}body.3.conv_du.0.weight'],
                      p[f'{k}body.3.conv_du.2.weight'], dt)
-    s, sums = naf_rep(g, cag, prep)
+    s, sums = rep(g, cag, prep)
     del g
     ca = ca_mlp(sums, n_px, p[f'{k}body.{6 + off}.conv_du.0.weight'],
                 p[f'{k}body.{6 + off}.conv_du.2.weight'], dt)
-    return naf_back(y, s, ca, prep, inplace=inplace)
+    return back(y, s, ca, prep)
 
 
 def encoder_shift_block(p: dict[str, torch.Tensor], x: torch.Tensor, *,

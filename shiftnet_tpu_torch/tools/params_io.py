@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from shiftnet_tpu_torch.models.config import CONFIGS
+from shiftnet_tpu_torch.train.checkpoint import load_params_npz
 
 # The small variants build orb4/5 and rorb4/5 but run only orb1..3
 # (gshift_deblur2.py:718-726).
@@ -39,11 +40,9 @@ def drop_unused_reference_keys(state: dict, variant: str) -> dict:
 
 def load_state(variant: str, path: str) -> dict[str, torch.Tensor]:
     """Torch-keyed float32 state for ``build_model(variant)``."""
-    if path.endswith('.pth'):
-        state = drop_unused_reference_keys(load_reference_checkpoint(path),
-                                           variant)
-    else:
-        with np.load(path) as data:
-            state = {k: data[k] for k in data.files}
+    if not path.endswith('.pth'):
+        return load_params_npz(path)
+    state = drop_unused_reference_keys(load_reference_checkpoint(path),
+                                       variant)
     return {k: torch.from_numpy(np.asarray(v, np.float32))
             for k, v in state.items()}

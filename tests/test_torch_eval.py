@@ -3,6 +3,7 @@ JAX model's forward, the deblur CLI end to end, the port's own window and
 metric helpers against the JAX package's, and the port's freedom from JAX
 and from the JAX package, on the CPU.
 """
+import functools
 import os
 import re
 import subprocess
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from shiftnet_tpu.data.video_dataset import _imread as jax_imread
 from shiftnet_tpu.eval import metrics as jmetrics
@@ -110,8 +112,17 @@ def test_forward_window_half_plan_matches_jax_tiles(tiny, tmp_path,
     assert '-> half' in log
 
 
-def test_deblur_cli_logs_psnr_ssim(tmp_path):
-    imageio = pytest.importorskip('imageio.v2')
+def test_deblur_cli_logs_psnr_ssim(tmp_path, capsys, monkeypatch):
+    """The deblur CLI end to end on two synthetic videos: it logs PSNR and
+    SSIM per chunk, per video and in total.  It runs in this process, and
+    the Evaluator builds deblur_plus narrow (its ``build_model`` given
+    ``TINY``, the weights saved at those widths), as
+    ``tests/test_torch_validation.py`` does, so that it stays light beside
+    the other CPU suites."""
+    from shiftnet_tpu_torch.eval import runner
+    from shiftnet_tpu_torch.tools import test_deblur
+    monkeypatch.setattr(runner, 'build_model',
+                        functools.partial(build_model, **TINY))
     rng = np.random.default_rng(14)
     data = tmp_path / 'data'
     for video in ('clip1', 'clip2'):
@@ -122,22 +133,18 @@ def test_deblur_cli_logs_psnr_ssim(tmp_path):
             for i in range(6):
                 noise = rng.integers(-8, 8, (32, 32, 3))
                 img = np.clip(base + noise, 0, 255).astype(np.uint8)
-                imageio.imwrite(d / f'{i:03d}.png', img)
-    state = init_state(build_model('deblur_plus'), seed=15)
+                Image.fromarray(img).save(d / f'{i:03d}.png')
+    state = init_state(build_model('deblur_plus', **TINY), seed=15)
     npz = tmp_path / 'net.npz'
     np.savez(npz, **{k: v.numpy() for k, v in state.items()})
-    res = subprocess.run(
-        [sys.executable, '-m', 'shiftnet_tpu_torch.tools.test_deblur',
-         '--model_path', str(npz), '--data_path', str(data),
-         '--result_path', str(tmp_path / 'out'), '--one_len', '2',
-         '--fp32', '--device', 'cpu'],
-        cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, 'PYTHONPATH': str(REPO)})
-    assert res.returncode == 0, res.stderr
+    test_deblur.main(['--model_path', str(npz), '--data_path', str(data),
+                      '--result_path', str(tmp_path / 'out'), '--one_len',
+                      '2', '--fp32', '--device', 'cpu'])
+    out = capsys.readouterr().out
     for video in ('clip1', 'clip2'):
-        assert f'> {video}-00000 PSNR=' in res.stdout
-        assert f'# Video:{video} AVG-PSNR=' in res.stdout
-    assert '# Total AVG-PSNR=' in res.stdout and 'AVG-SSIM=' in res.stdout
+        assert f'> {video}-00000 PSNR=' in out
+        assert f'# Video:{video} AVG-PSNR=' in out
+    assert '# Total AVG-PSNR=' in out and 'AVG-SSIM=' in out
     logs = list((tmp_path / 'out').glob('inference_log_*.txt'))
     assert logs and 'AVG-SSIM=' in logs[0].read_text()
 
@@ -175,6 +182,14 @@ def test_port_imports_no_jax():
         "assert not loaded, loaded\n"
         "assert 'shiftnet_tpu_torch.ops.probes' in sys.modules\n"
         "assert 'shiftnet_tpu_torch.tools.probe_copy_bw' in sys.modules\n"
+        "for n in ('train.trainer', 'train.optim', 'ops.chw_grad',\n"
+        "          'data.packed', 'data.loader', 'tools.train'):\n"
+        "    assert 'shiftnet_tpu_torch.' + n in sys.modules, n\n"
+        "from shiftnet_tpu_torch.data import packed\n"
+        "lib = packed._load_lib()\n"
+        "assert lib is not None and packed.library_path().parent == \\\n"
+        "    packed.BUILD_DIR and lib._name == str(packed.library_path())\n"
+        "assert packed.SOURCE.parent.parent.name == 'shiftnet_tpu_torch'\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, '-c', script], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -190,7 +205,8 @@ IMPORT_OF_JAX_PACKAGE = re.compile(
 def test_port_sources_import_nothing_of_the_jax_package():
     """No ``import shiftnet_tpu`` / ``from shiftnet_tpu`` (other than
     ``shiftnet_tpu_torch``) and no import of the root ``tools/`` in any
-    source of the port or in chip_smoke."""
+    source of the port or in chip_smoke; the port's C++ reader includes
+    nothing of the repo and names the port's module as its caller."""
     sources = sorted((REPO / 'shiftnet_tpu_torch').rglob('*.py'))
     sources.append(REPO / 'chip_smoke.py')
     assert len(sources) >= 20
@@ -198,6 +214,12 @@ def test_port_sources_import_nothing_of_the_jax_package():
              for path in sources
              for m in IMPORT_OF_JAX_PACKAGE.finditer(path.read_text())]
     assert not found, found
+    cpp = (REPO / 'shiftnet_tpu_torch' / 'native' / 'packed_reader.cpp'
+           ).read_text()
+    assert all(line.split()[1].startswith('<')
+               for line in cpp.splitlines() if line.startswith('#include'))
+    assert 'shiftnet_tpu_torch/data/packed.py' in cpp
+    assert not re.search(r'shiftnet_tpu/', cpp)
     assert IMPORT_OF_JAX_PACKAGE.search('from shiftnet_tpu.eval import x')
     assert IMPORT_OF_JAX_PACKAGE.search('    import shiftnet_tpu\n')
     assert not IMPORT_OF_JAX_PACKAGE.search('from shiftnet_tpu_torch import x')
