@@ -97,6 +97,31 @@ Phases, each of which must pass:
    the forward's plus the checkpoint recompute's; a resume that logs
    "auto-resumed from step 4" and continues; two steps of
    ``configs/davis_denoise.yml`` (denoise_plus, T = 15, patch 192).
+12. train_measure: the training measurement tools at the published shape
+   (deblur_plus, T = 23, patch 256, bf16): ``tools/bench_train.py both 23
+   256`` (one warm-up, 3 timed steps, no loader) and ``tools/
+   profile_train.py fused 23 256`` (forward, backward, optimizer and loss
+   glue, each with its peak; one step under ``torch.profiler``: the
+   device's busy share and the top kernels), with the host's load and the
+   card's clocks beside each; the ``train_measure:`` lines.
+13. parallel: 2 ranks started by ``parallel/launch.py`` (gloo where they
+   share this card, NCCL with a card a rank; the backend is printed, and
+   which collectives it takes with CUDA tensors): (a) tp inference of
+   deblur_plus 40x720x1280 bf16 on 2 ranks, the 36 gathered frames equal
+   bit for bit to the single-process forward of the two 24-frame
+   sub-windows of the edge rule (``parallel/temporal.py``), each rank's
+   launches (``launches_tp_deblur_plus``) and peak; (b) denoise_plus
+   15x480x848 f32 on 2 ranks (shards of 8 and 7 frames), bit for bit the
+   same way; (c) f32 gradients of sequence-parallel deblur_plus on the
+   kernels, 8x64x64 over 2 ranks, within 1e-5 (relative L2) of one
+   process; (d) the train CLI on a copy of ``configs/gopro_deblur_tp8.yml``
+   with ``time_parallel: 2`` (T = 24, patch 256), unfused and fused, 3
+   steps each, with s/step and each rank's peak, the fused step's
+   launches a rank (``launches_train_sp_fused``) held to the single-GPU
+   step's; (e) ``configs/
+   gopro_deblur_dp8.yml`` on 2 ranks, one step, within 1e-5 of one
+   process at batch 2 on the same clips; (f) the train CLI under torchrun
+   with one rank on NCCL, bit for bit the single-process step (T = 8).
 
 The line before the last is a JSON object with each kernel's launches on
 every driven path, its error, its times and its bound; the last line is
@@ -1790,6 +1815,350 @@ def _train_runs(card):
     return launches
 
 
+def train_measure_phase(card):
+    """The training measurement tools (``tools/bench_train.py``,
+    ``tools/profile_train.py``) at the published shape: ``bench_train both
+    23 256`` with one warm-up and 3 timed steps, then ``profile_train fused
+    23 256``; prints the ``train_measure:`` lines."""
+    from shiftnet_tpu_torch.tools import bench_train, profile_train
+    bench = bench_train.main(['both', '23', '256', '--steps', '3',
+                              '--warmup', '1'])
+    prof = profile_train.main(['fused', '23', '256', '--iters', '1'])['fused']
+    for form, r in bench.items():
+        print(f'train_measure: bench_train {form} T=23 256: '
+              f'{r["median_s"]:.4f} s/step (steps '
+              f'{", ".join(f"{v:.4f}" for v in r["steps_s"])}; first '
+              f'{r["first_s"][0]:.4f}), peak {r["peak"] / 1e9:.3f} GB; '
+              f'{r["host_after"]} [{card}]', flush=True)
+    tr = prof['trace']
+    print(f'train_measure: profile_train fused T=23 256: forward '
+          f'{prof["forward"]["s"]:.4f} s (peak '
+          f'{prof["forward"]["peak"] / 1e9:.3f} GB), backward '
+          f'{prof["backward_s"]:.4f} s, optimizer and loss glue '
+          f'{prof["glue_s"]:.4f} s, step {prof["step"]["s"]:.4f} s (peak '
+          f'{prof["step"]["peak"] / 1e9:.3f} GB); traced step: wall '
+          f'{tr["wall_s"]:.3f} s, device busy {tr["busy_s"]:.3f} s '
+          f'({100 * tr["busy_s"] / tr["wall_s"]:.1f} %), port kernels '
+          f'{tr["port_s"]:.3f} of {tr["kernel_s"]:.3f} s kernel time; '
+          f'{prof["step"]["host"]} [{card}]', flush=True)
+    return bench, prof
+
+
+# The parallel phase: 2 ranks (gloo on one card, NCCL with a card a rank).
+PARALLEL_RANKS = 2
+SP_GRAD_CLIP = (8, 64, 64)   # (c): f32 sequence-parallel gradients
+TP_DN_T = 15                 # (b): shards of 8 and 7 frames
+NCCL_ONE_RANK_T = 8          # (f): the one-rank NCCL step, depth cut
+
+
+def _sub_windows(x, n, halo):
+    """The single-process windows that ``temporal_parallel_forward`` runs
+    on n ranks: each shard with ``halo`` frames of each neighbour, and at
+    the ends the shard's own edge frames (``parallel/temporal.py``)."""
+    from shiftnet_tpu_torch.parallel.temporal import shard_bounds
+    t = x.shape[0]
+    out = []
+    for s, e in shard_bounds(t, n):
+        left = x[s - halo:s] if s else x[:halo]
+        right = x[e:e + halo] if e < t else x[t - halo:]
+        out.append(np.concatenate([left, x[s:e], right]))
+    return out
+
+
+def _rel_l2(a, b):
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return float(np.sqrt(num / den))
+
+
+def _max_abs(a, b):
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in b)
+
+
+def _write_parallel_config(tmp, src, name, data, changes):
+    import yaml
+    with open(os.path.join('configs', src)) as f:
+        opt = yaml.safe_load(f)
+    opt['datasets']['train']['dir_data'] = data
+    opt['experiments_root'] = os.path.join(tmp, 'exp')
+    opt['logger'] = dict(opt['logger'], print_freq=1)
+    opt['name'] = name
+    opt.update(changes)
+    path = os.path.join(tmp, f'{name}.yml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+def parallel_phase(card):
+    """tp inference, sequence- and data-parallel training on 2 ranks
+    (``parallel/launch.py``; gloo where they share this card), each held
+    against the same work in one process; then one NCCL rank under
+    torchrun against the single-process trainer.  Returns the per-rank
+    launches of the tp window and of the fused sequence-parallel step."""
+    import torch
+    from shiftnet_tpu_torch.eval.runner import Evaluator
+    from shiftnet_tpu_torch.models import build_model, init_state
+    from shiftnet_tpu_torch.parallel import launch, workers
+    from shiftnet_tpu_torch.parallel.mesh import choose_backend
+    from shiftnet_tpu_torch.train.step import TaskConfig, draw_noise
+    n = PARALLEL_RANKS
+    backend = choose_backend(torch.device('cuda'), n)
+    print(f'parallel: {n} ranks on {torch.cuda.device_count()} GPU(s), '
+          f'backend {backend} [{card}]', flush=True)
+    deblur = init_state(build_model('deblur_plus'), seed=0)
+    denoise = init_state(build_model('denoise_plus'), seed=0)
+    x_db = _clip(ONE_LEN + 2 * HALO, H, W, seed=1)
+    x_dn = _clip(TP_DN_T, DN_H, DN_W, seed=41)
+    t, h, w = SP_GRAD_CLIP
+    rng = np.random.default_rng(42)
+    gt = torch.from_numpy(rng.uniform(0, 1, (1, t, 3, h, w)).astype(
+        np.float32))
+    sp_batch = {'gt': gt, 'lq': (gt + 0.05 * torch.from_numpy(
+        rng.standard_normal(gt.shape).astype(np.float32))).clamp(0, 1)}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, 'gopro')
+        for seed, clip in ((51, 'clip1'), (52, 'clip2')):
+            _write_clip_folder(os.path.join(tmp, clip), ('gt', 'blur'), 24,
+                               288, 320, seed=seed)
+            for sub in ('gt', 'blur'):
+                os.makedirs(os.path.join(data, sub), exist_ok=True)
+                os.rename(os.path.join(tmp, clip, sub, 'clip1'),
+                          os.path.join(data, sub, clip))
+        sp = {fused: _write_parallel_config(
+            tmp, 'gopro_deblur_tp8.yml', f'sp_{int(fused)}', data,
+            {'time_parallel': n, 'fused': fused,
+             'train': _total_iter('gopro_deblur_tp8.yml', 3)})
+            for fused in (False, True)}
+        dp = _write_parallel_config(
+            tmp, 'gopro_deblur_dp8.yml', 'dp', data,
+            {'train': _total_iter('gopro_deblur_dp8.yml', 1)})
+        jobs = [
+            ('collectives', (), {}),
+            ('evaluator_windows', ('deblur_plus', deblur, [(x_db, None)]),
+             {}),
+            ('evaluator_windows', ('denoise_plus', denoise,
+                                   [(x_dn, SIGMA)]), {}),
+            ('train_steps', ('deblur_plus', {}, deblur, sp_batch, None),
+             dict(data=1, time_=n, fused=True)),
+            ('train_cli', (sp[False], [3], 'cuda'), {}),
+            ('train_cli', (sp[True], [3], 'cuda'), {}),
+            ('train_cli', (dp, [1], 'cuda'), {})]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch.run(workers.run_jobs, n, jobs, device='cuda',
+                           threads=4, timeout=900)
+        print(f'parallel: the ranks took {time.perf_counter() - t0:.1f} s',
+              flush=True)
+        probe, *res = [list(r) for r in zip(*ranks)]  # by job, then rank
+        print(f'parallel: {probe[0]["backend"]} with CUDA tensors: '
+              + '; '.join(f'{k} {v}' for k, v in probe[0]['ops'].items()),
+              flush=True)
+        launches = {'tp_deblur_plus': _tp_check(
+            'deblur_plus', deblur, x_db, None, res[0], MAIN_PATH_LAUNCHES,
+            card, tmp)}
+        _tp_check('denoise_plus', denoise, x_dn, SIGMA, res[1],
+                  DENOISE_LAUNCHES, card, tmp)
+        del x_db, x_dn
+        one = workers.train_steps('deblur_plus', {}, deblur, sp_batch, None,
+                                  data=1, time_=1, fused=True)
+        err = _rel_l2(res[2][0]['grads'], one['grads'])
+        mx = _max_abs(res[2][0]['grads'], one['grads'])
+        print(f'parallel: (c) sequence-parallel deblur_plus f32 fused '
+              f'{t}x{h}x{w} on {n} ranks vs one process: gradients relative '
+              f'L2 {err:.3e} (tol 1e-5), max abs {mx:.3e}; loss '
+              f'{res[2][0]["loss"]:.7f} vs {one["loss"]:.7f}; grad norm '
+              f'{res[2][0]["grad_norm"]:.6e} vs {one["grad_norm"]:.6e} '
+              f'[{card}]', flush=True)
+        if not err <= 1e-5:
+            raise AssertionError('sequence-parallel gradients disagree')
+        launches['train_sp_fused'] = _sp_cli_check(res[3], res[4], card)
+        _dp_check(res[5], dp, tmp, card)
+        _nccl_one_rank_check(tmp, data, card)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _total_iter(config, n):
+    import yaml
+    with open(os.path.join('configs', config)) as f:
+        train = yaml.safe_load(f)['train']
+    return dict(train, total_iter=n)
+
+
+def _tp_check(variant, state, x, sigma, res, expected, card, tmp):
+    """(a), (b): rank 0's gathered tp window against the single-process
+    forward of the sub-windows, bit for bit; each rank's launches and
+    peak."""
+    import torch
+    from shiftnet_tpu_torch.eval.runner import Evaluator
+    ev = Evaluator(variant, state, device='cuda', result_path=tmp)
+    outs = [ev.forward_window(w, sigma) for w in
+            _sub_windows(x, PARALLEL_RANKS, HALO)]
+    want = np.concatenate(outs)[HALO:x.shape[0] - HALO]
+    del ev, outs
+    torch.cuda.empty_cache()
+    got = res[0]['outs'][0].numpy()
+    same = got.shape == want.shape and np.array_equal(got, want)
+    gap = (float(np.abs(got - want).max()) if got.shape == want.shape
+           else 'shape')
+    launches = [r['launches'][0] for r in res]
+    print(f'parallel: tp {variant} {x.shape[0]}x{x.shape[1]}x{x.shape[2]} '
+          f'{"f32" if sigma else "bf16"} on {PARALLEL_RANKS} ranks: '
+          f'{got.shape[0]} gathered frames equal the single-process '
+          f'sub-windows bit for bit: {same} (max abs '
+          f'{gap}); '
+          f'seconds {[round(r["seconds"][0], 3) for r in res]}, peaks '
+          f'{[round(r["peaks"][0] / 1e9, 3) for r in res]} GB; grids and '
+          f'quadrant raise: {[len(r["raised"]) for r in res]}; launches per '
+          f'rank {launches} [{card}]', flush=True)
+    log = res[0]['log']
+    print('\n'.join(f'parallel:   {line}' for line in log.splitlines()
+                    if line.startswith(('[tp]', '[plan]'))), flush=True)
+    if not same or any(len(r['raised']) != 2 for r in res):
+        raise AssertionError(f'tp {variant}: the gathered window differs')
+    if any(k != expected for k in launches):
+        raise AssertionError(f'tp {variant}: launches {launches}, expected '
+                             f'{expected} a rank')
+    return {k: [lc[k] for lc in launches] for k in expected}
+
+
+def _sp_cli_check(unfused, fused, card):
+    """(d): the train CLI on a copy of gopro_deblur_tp8.yml with
+    time_parallel 2; returns the fused step's launches a rank."""
+    for label, res in (('unfused', unfused), ('fused', fused)):
+        run = [r['runs'][-1] for r in res]
+        med = statistics.median(run[0]['seconds'][1:])
+        print(f'parallel: (d) train CLI gopro_deblur_tp8.yml time_parallel '
+              f'{PARALLEL_RANKS} (T=24 patch 256, {label}), mesh '
+              f'{run[0]["mesh"]}: s/step {med:.4f} '
+              f'(steps {", ".join(f"{v:.4f}" for v in run[0]["seconds"])}; '
+              f'ranks share one card: not a speedup), losses '
+              f'{", ".join(f"{v:.5f}" for v in run[0]["losses"])}, peaks '
+              f'{[round(r["peak"] / 1e9, 3) for r in res]} GB, backend '
+              f'{res[0]["backend"]} [{card}]', flush=True)
+        if not (all(np.isfinite(run[0]['losses'])) and run[0]['step'] == 3
+                and [r['primary'] for r in run] == [True, False]):
+            raise AssertionError(f'sequence-parallel CLI {label} failed')
+        if any(r['runs'][-1]['losses'] != run[0]['losses'] for r in res):
+            raise AssertionError('the ranks report different losses')
+    launches = [r['runs'][-1]['launches'] for r in fused]
+    print(f'parallel: (d) fused step launches a rank {launches} (expected '
+          f'{TRAIN_FUSED_LAUNCHES})', flush=True)
+    if any(lc != TRAIN_FUSED_LAUNCHES for lc in launches):
+        raise AssertionError('the fused sequence-parallel step did not run '
+                             'on the kernels as expected')
+    return {k: [lc[k] for lc in launches] for k in TRAIN_FUSED_LAUNCHES}
+
+
+def _single_cli(path, changes, tmp, label):
+    """The train CLI in this process (no process group) on a copy of the
+    config at ``path`` with ``changes``; returns its final weights and its
+    last step's metrics."""
+    import yaml
+    from shiftnet_tpu_torch.tools import train as train_cli
+    with open(path) as f:
+        opt = yaml.safe_load(f)
+    opt.update(changes, name=label)
+    p = os.path.join(tmp, f'{label}.yml')
+    with open(p, 'w') as f:
+        yaml.safe_dump(opt, f)
+    tr = train_cli.main(['-opt', p])
+    return ({k: v.detach().cpu() for k, v in tr.model.state_dict().items()},
+            {k: float(v) for k, v in tr.metrics.items()})
+
+
+def _dp_check(res, path, tmp, card):
+    """(e): gopro_deblur_dp8.yml on 2 ranks for one step against one
+    process with batch 2 on the same two clips: the updated parameters to
+    1e-5 relative L2, the loss and the global gradient norm to 1e-5.  The
+    update itself (new - old weights) is printed, not held: AdamW's first
+    step is g / (|g| + 1e-8) a weight, so where |g| is near 1e-8 the
+    summation order of the gradients moves it by a large fraction."""
+    import torch
+    from shiftnet_tpu_torch.models import build_model, init_state
+    one, m1 = _single_cli(path, {'batch_size_per_device': PARALLEL_RANKS},
+                          tmp, 'dp_single')
+    start = init_state(build_model('deblur_plus'), seed=0)
+    par = res[0]['params']
+    run = res[0]['runs'][0]
+    upd = {k: par[k] - start[k] for k in start}
+    ref = {k: one[k] - start[k] for k in start}
+    err, uerr = _rel_l2(par, one), _rel_l2(upd, ref)
+    loss, gn = run['losses'][0], run['grad_norms'][0]
+    same = all(torch.equal(r['params'][k], par[k]) for r in res for k in par)
+    print(f'parallel: (e) gopro_deblur_dp8.yml on {PARALLEL_RANKS} ranks, one '
+          f'step, vs one process at batch {PARALLEL_RANKS}: parameters '
+          f'relative L2 {err:.3e} (tol 1e-5), the update {uerr:.3e}; loss '
+          f'{loss:.7f} vs {m1["loss"]:.7f}, grad norm {gn:.6e} vs '
+          f'{m1["grad_norm"]:.6e}; ranks equal {same}; mesh {run["mesh"]}, '
+          f'peaks {[round(r["peak"] / 1e9, 3) for r in res]} GB [{card}]',
+          flush=True)
+    if not (err <= 1e-5 and same and abs(loss - m1['loss']) <= 1e-5 * loss
+            and abs(gn - m1['grad_norm']) <= 1e-5 * gn):
+        raise AssertionError('the data-parallel step differs from the '
+                             'single-process one')
+
+
+def _nccl_one_rank_check(tmp, data, card):
+    """(f): the train CLI under torchrun with one rank on NCCL against the
+    same config in one process (the single-GPU trainer), at T =
+    ``NCCL_ONE_RANK_T``.  The first step's loss (the forward, before any
+    update) must be equal bit for bit, and so must the updated weights,
+    unless a second single-process run differs from the first too (the
+    backward of the plain bilinear upsample and of cuDNN's weight
+    gradients add with atomics, in no fixed order; PR 14 saw one such
+    call): then within 1e-5 relative L2, and the line prints both
+    differences."""
+    import torch
+    from shiftnet_tpu_torch.train.checkpoint import load_params_npz
+    path = _write_parallel_config(
+        tmp, 'gopro_deblur.yml', 'nccl1', data,
+        {'train': _total_iter('gopro_deblur.yml', 1),
+         'n_sequence': NCCL_ONE_RANK_T})
+    one, m1 = _single_cli(path, {}, tmp, 'nccl1_single')
+    script = os.path.join(tmp, 'train_one_rank.py')
+    with open(script, 'w') as f:  # the train CLI, and its last loss exactly
+        f.write('import sys\nfrom shiftnet_tpu_torch.tools import train\n'
+                'tr = train.main(sys.argv[1:])\n'
+                "print('last loss', repr(float(tr.metrics['loss'])))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', '1', script, '-opt', path],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, 'PYTHONPATH': os.getcwd()})
+    out = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise AssertionError(f'torchrun train failed:\n{out[-4000:]}')
+    got = load_params_npz(os.path.join(tmp, 'exp', 'nccl1', 'models',
+                                       'net_g_1.npz'))
+    one = {k: v.float() for k, v in one.items()}
+    same = all(torch.equal(got[k], one[k]) for k in one)
+    again, m2 = (one, m1) if same else _single_cli(path, {}, tmp,
+                                                   'nccl1_again')
+    again = {k: v.float() for k, v in again.items()}
+    reproducible = all(torch.equal(again[k], one[k]) for k in one)
+    loss = re.search(r'last loss (\S+)', out)
+    loss = float(loss.group(1)) if loss else None
+    backend = re.search(r'backend (\w+)', out)
+    err, spread = _rel_l2(got, one), _rel_l2(again, one)
+    print(f'parallel: (f) torchrun one rank, backend '
+          f'{backend.group(1) if backend else "?"}, gopro_deblur.yml (T = '
+          f'{NCCL_ONE_RANK_T}) one step vs one process: loss {loss!r} vs '
+          f'{m1["loss"]!r}; weights equal bit for bit: {same} (relative L2 '
+          f'{err:.3e})'
+          + ('' if same else f'; a second single-process run: loss '
+             f'{m2["loss"]!r}, weights equal bit for bit: {reproducible} '
+             f'(relative L2 {spread:.3e})')
+          + f' ({time.perf_counter() - t0:.1f} s) [{card}]', flush=True)
+    if not backend or backend.group(1) != 'nccl':
+        raise AssertionError('the one-rank run was not on NCCL')
+    if not (loss == m1['loss'] == m2['loss']
+            and (same or (not reproducible and err <= 1e-5))):
+        raise AssertionError('the one-rank NCCL step differs')
+
 def main():
     card = device_phase()
     build_phase()
@@ -1816,6 +2185,14 @@ def main():
     t0 = time.perf_counter()
     launches['train_deblur_plus_fused'] = train_phase(card)
     print(f'train: phase took {time.perf_counter() - t0:.1f} s', flush=True)
+    t0 = time.perf_counter()
+    train_measure_phase(card)
+    print(f'train_measure: phase took {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    t0 = time.perf_counter()
+    launches.update(parallel_phase(card))
+    print(f'parallel: phase took {time.perf_counter() - t0:.1f} s',
+          flush=True)
     kernels = []
     for name, (src, repl, also, counter, main_path) in KERNELS.items():
         r = rec[name]

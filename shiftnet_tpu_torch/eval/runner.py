@@ -13,6 +13,17 @@ half-height tiles when the device's free memory is below a stated per-pixel
 estimate, or the reference's four quadrant tiles when asked for or when the
 frame's height or width is not a multiple of 8 (the model's three stride-2
 levels need one).  An out-of-memory error is not caught.
+
+``tp`` (sequence-parallel inference, ``shiftnet_tpu/eval/runner.py:
+107-120, :246-290``) splits each window's frames over the ranks of a
+process group (``parallel/temporal.py``): every rank holds the window,
+runs its frames with 2-frame halos from its neighbours, and the restored
+frames are gathered on every rank.  A window whose T does not divide by tp
+is split into shards of ``ceil(T/tp)`` and ``floor(T/tp)`` frames; no frame
+is repeated to pad it (as JAX does, ``runner.py:254-259``).  The grids
+forward and the quadrant plan raise under tp (JAX runs them unsharded,
+``runner.py:148-157, :358-366``).  Only rank 0 scores, logs and writes
+images.
 """
 from __future__ import annotations
 
@@ -33,6 +44,10 @@ from shiftnet_tpu_torch.eval.window import (half_slices, mod_crop,
                                             plan_denoise_chunks,
                                             quadrant_pads, quadrant_slices)
 from shiftnet_tpu_torch.models import CONFIGS, GShiftNetConfig, build_model
+from shiftnet_tpu_torch.parallel import mesh as pmesh
+from shiftnet_tpu_torch.parallel.temporal import (gather_frames,
+                                                  shard_bounds,
+                                                  temporal_parallel_forward)
 
 HALO = 2  # input frames on each side of a window's outputs (test_deblur.py)
 # The default of ``Evaluator(metrics=...)``: the inference-local protocol
@@ -95,13 +110,18 @@ CONFIG_OVERRIDES = {
 
 
 class EvalLogger:
-    """Reference ``Traverse_Logger`` (``test_deblur.py:15-23``)."""
+    """Reference ``Traverse_Logger`` (``test_deblur.py:15-23``); writes
+    nothing where ``enabled`` is false (the ranks other than 0)."""
 
-    def __init__(self, result_dir: str, filename: str):
-        os.makedirs(result_dir, exist_ok=True)
+    def __init__(self, result_dir: str, filename: str, enabled: bool = True):
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(result_dir, exist_ok=True)
         self.path = os.path.join(result_dir, filename)
 
     def write(self, msg: str):
+        if not self.enabled:
+            return
         print(msg, flush=True)
         with open(self.path, 'a') as f:
             f.write(msg + '\n')
@@ -116,12 +136,24 @@ class Evaluator:
     plain versions on the CPU), as the JAX Evaluator does
     (``shiftnet_tpu/eval/runner.py:51-74``).  ``metrics``: {name: {'type':
     <a name of ``eval.registry.METRIC_FUNCS``>, **kwargs}}, the reference's
-    ``val.metrics``; ``METRICS`` by default."""
+    ``val.metrics``; ``METRICS`` by default.  ``tp``: split each window's
+    frames over the ranks of the initialized process group, which must
+    have ``tp`` ranks."""
 
     def __init__(self, variant: str, state: dict[str, torch.Tensor], *,
                  device: str | torch.device, result_path: str = 'results',
                  bf16: bool | None = None, save_images: bool = False,
-                 overrides: dict | None = None, metrics: dict | None = None):
+                 overrides: dict | None = None, metrics: dict | None = None,
+                 tp: int = 1):
+        self.tp = int(tp)
+        if self.tp > 1:
+            n = pmesh.world_size()
+            if n != self.tp:
+                raise ValueError(
+                    f'tp={self.tp} needs an initialized process group of '
+                    f'{self.tp} ranks (torchrun --nproc_per_node '
+                    f'{self.tp}); this process has {n}')
+        self.primary = pmesh.is_primary()
         if bf16 is None:
             bf16 = not CONFIGS[variant].noise_map
         overrides = dict(overrides or {})
@@ -144,7 +176,8 @@ class Evaluator:
         self.save_images = save_images
         self.result_path = result_path
         stamp = time.strftime('%Y-%m-%d %H:%M:%S')
-        self.logger = EvalLogger(result_path, f'inference_log_{stamp}.txt')
+        self.logger = EvalLogger(result_path, f'inference_log_{stamp}.txt',
+                                 enabled=self.primary)
 
     def _budget(self) -> int | None:
         """Device bytes a window may use; None on the CPU."""
@@ -159,8 +192,13 @@ class Evaluator:
         """'quadrant' (``eval.window.quadrant_slices``) when asked for or
         when H or W is not a multiple of 8; else 'full' when the window's
         estimated peak fits the budget, else 'half' (two half-height tiles,
-        ``eval.window.half_slices``)."""
+        ``eval.window.half_slices``).  Under tp the estimate is of the
+        rank's frames (its largest shard plus both halos), and the ranks
+        take the plan of the rank with the least room: ranks that share a
+        card each see the other's memory in its budget."""
         t, h, w = shape[:3]
+        if self.tp > 1:
+            t = -(-t // self.tp) + 2 * HALO
         if quadrant or h % 8 or w % 8:
             ph, pw = quadrant_pads(h, w)
             if h % 2 or w % 2 or h // 2 < ph or w // 2 < pw:
@@ -171,9 +209,22 @@ class Evaluator:
             return 'quadrant'
         need = t * h * w * self.bytes_per_px
         budget = self._budget()
-        return 'full' if budget is None or need <= budget else 'half'
+        half = budget is not None and need > budget
+        if self.tp > 1:  # one plan for all ranks
+            flag = torch.tensor([int(half)], device=self.device)
+            torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX)
+            half = bool(flag.item())
+        return 'half' if half else 'full'
 
     def _run(self, x: np.ndarray, sigma: float | None) -> np.ndarray:
+        """The model on one (T, H, W, 3) input; under tp this rank's shard
+        of its frames, through the halo exchange, gathered on every
+        rank."""
+        t_all = x.shape[0]
+        if self.tp > 1:
+            bounds = shard_bounds(t_all, self.tp)
+            s, e = bounds[pmesh.rank()]
+            x = x[s:e]
         xt = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         xt = xt.to(self.device).permute(0, 3, 1, 2).to(self.dtype).contiguous()
         with torch.inference_mode():
@@ -182,7 +233,13 @@ class Evaluator:
                 t, _, h, w = xt.shape
                 nm = torch.full((t, 1, h, w), sigma, device=self.device,
                                 dtype=self.dtype)
-            out = self.model(xt, nm)
+            if self.tp > 1:
+                world = torch.distributed.group.WORLD
+                fwd = temporal_parallel_forward(self.model, world, HALO)
+                out = gather_frames(fwd(xt, nm), world, bounds)
+                out = out[HALO:t_all - HALO]
+            else:
+                out = self.model(xt, nm)
         return out.permute(0, 2, 3, 1).float().cpu().numpy()
 
     def forward_window(self, x: np.ndarray, sigma: float | None = None, *,
@@ -196,10 +253,22 @@ class Evaluator:
                              'takes a noise map')
         tt, hh, ww, _ = x.shape
         plan = self.window_plan(x.shape, quadrant)
+        if plan == 'quadrant' and self.tp > 1:
+            raise ValueError(
+                f'window {hh}x{ww}: the quadrant plan does not run under '
+                f'tp={self.tp}')
         budget = self._budget()
+        t_rank = tt
+        if self.tp > 1:
+            sizes = [e - s for s, e in shard_bounds(tt, self.tp)]
+            t_rank = max(sizes) + 2 * HALO
+            self.logger.write(
+                f'[tp] window T={tt} over {self.tp} ranks: shards of '
+                f'{sizes} frames (+{HALO}+{HALO} halo), no frame repeated')
         self.logger.write(
             f'[plan] window {tuple(x.shape)} {self.dtype}: estimated '
-            f'{tt * hh * ww * self.bytes_per_px / 1e9:.2f} GB, '
+            f'{t_rank * hh * ww * self.bytes_per_px / 1e9:.2f} GB'
+            f'{" a rank" if self.tp > 1 else ""}, '
             f'budget {"host" if budget is None else f"{budget / 1e9:.2f} GB"}'
             f' -> {plan}')
         if plan == 'full':
@@ -223,6 +292,9 @@ class Evaluator:
         if (sigma is not None) != self.noise_map:
             raise ValueError('sigma is required exactly when the variant '
                              'takes a noise map')
+        if self.tp > 1:
+            raise ValueError(f'forward_grids does not run under tp={self.tp}'
+                             ' (the JAX Evaluator runs it unsharded)')
         t, h, w, _ = x.shape
         cs = min(crop_size, h, w)
         if cs % 8:
@@ -263,6 +335,8 @@ class Evaluator:
                 else:
                     out = self.forward_window(x)
                 t2 = time.time()
+                if not self.primary:
+                    continue
                 sc = self._score(out, gts, v, ch.out_start)
                 for name in vsc:
                     vsc[name] += sc[name]
@@ -272,7 +346,7 @@ class Evaluator:
                     + f' pre:{t1 - t0:.3f}s fwd:{t2 - t1:.3f}s '
                     f'post:{t3 - t2:.3f}s')
             totals[v] = vsc
-        return self._summarize(totals)
+        return self._summarize(totals) if self.primary else {}
 
     def eval_denoise(self, data_path: str, sigma: float, *,
                      tile: bool = False, seed: int = 0, grids: bool = False,
@@ -304,6 +378,8 @@ class Evaluator:
                 else:
                     out = self.forward_window(noisy, s, quadrant=tile)
                 t2 = time.time()
+                if not self.primary:
+                    continue
                 gts = list(gt_clip[HALO:gt_clip.shape[0] - HALO])
                 sc = self._score(out, gts, v, ch.out_start)
                 for name in vsc:
@@ -314,6 +390,8 @@ class Evaluator:
                     + f' pre:{t1 - t0:.3f}s fwd:{t2 - t1:.3f}s '
                     f'post:{t3 - t2:.3f}s')
             totals[v] = vsc
+        if not self.primary:
+            return {}
         return self._summarize(totals, per_video_avg=True)
 
     def _score(self, out: np.ndarray, gts, video: str,

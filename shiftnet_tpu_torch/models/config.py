@@ -1,8 +1,9 @@
 """GShiftNet configuration: the four reference variants.
 
 Re-declared from ``shiftnet_tpu/models/gshift.py:29-111`` (that module
-imports flax).  The fields the port does not run yet (``stage2_chunk``,
-``time_axis``) are not declared.
+imports flax).  ``stage2_chunk`` (a memory knob for 16 GB of HBM) is not
+declared; JAX's ``time_axis`` (a mesh axis name) is ``time_group`` here, a
+``torch.distributed`` process group.
 """
 from __future__ import annotations
 
@@ -44,6 +45,11 @@ class GShiftNetConfig:
     conv_concat: bool = False       # fused_chw only: rconcat and conv_hr0
     # as one conv_cat launch over their inputs (ops.chw.conv_concat), so
     # the 3*nf0 / 2*nf0 channel concat is never allocated
+    # Sequence parallelism (gshift.py:74): the time ring over which a
+    # clip's frames are split; every temporal shift exchanges its edge
+    # frame over it.  Needs past_frames = future_frames = 0.
+    time_group: object = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def noise_map(self) -> bool:

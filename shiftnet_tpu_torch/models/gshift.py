@@ -25,6 +25,12 @@ While autograd records (training), each TFR U-Net of the orb chains is a
 (``shiftnet_tpu/models/gshift.py:397``), as is each shift-block round pair
 (``layers.EncoderShiftBlock``), and the fused modules run through
 ``ops/chw_grad``.  Inference is unchanged.
+
+With ``cfg.time_group`` (sequence parallelism, the counterpart of JAX's
+``time_axis``) the model runs on one rank's frames of a clip split over a
+time ring: every ShiftCAB and shift-block round exchanges its edge frame
+with the neighbouring ranks (``ops/shift.py``); everything else is per
+frame.
 """
 from __future__ import annotations
 
@@ -67,17 +73,20 @@ class Encoder2(nn.Module):
         self.conv_concat = cfg.conv_concat
         self.shift_encoder = cfg.encoder2_shift_encoder
         self.fuse_concat = cfg.final_fuse_concat
+        ring = cfg.time_group
         shift_kw = dict(rounds=cfg.shift_rounds, reduction=red,
                         boundary_patch=cfg.boundary_patch,
                         mid_ca=cfg.cab_mid_ca, last_bias=cfg.cab_last_bias,
-                        repconv_depthwise=cfg.repconv_depthwise, fused=fused)
+                        repconv_depthwise=cfg.repconv_depthwise, fused=fused,
+                        time_group=ring)
         dp = cfg.downsample_prelu
 
         def cab(c):
             return CAB(c, 3, red, fused=fused)
 
         def shift_cab(c, reverse):
-            return ShiftCAB(c, 3, red, reverse=reverse, fused=fused)
+            return ShiftCAB(c, 3, red, reverse=reverse, fused=fused,
+                            time_group=ring)
 
         def shift_blocks(*names):
             for name in names:
@@ -183,6 +192,11 @@ class GShiftNet(nn.Module):
 
     def __init__(self, cfg: GShiftNetConfig):
         super().__init__()
+        if cfg.time_group is not None and (cfg.past_frames
+                                           or cfg.future_frames):
+            # gshift.py:312-319: each rank predicts all of its frames
+            raise ValueError('a model on a time ring needs past_frames = '
+                             'future_frames = 0')
         self.cfg = cfg
         nf0 = cfg.n_feats0
         fused = cfg.fused_chw

@@ -222,18 +222,22 @@ class ShiftCAB(CAB):
     residual to the *shifted* input.  The shift is plain torch on both paths
     (XLA glue on the JAX fused path too); with ``fused`` the CAB runs on
     ``ops.chw.cab`` and, at inference, writes over the fresh shifted
-    tensor."""
+    tensor.  ``time_group``: the time ring of a clip split over ranks
+    (sequence parallelism), whose shift exchanges the edge frame."""
 
     def __init__(self, n_feat: int, kernel_size: int = 3, reduction: int = 4,
-                 *, reverse: bool = False, fused: bool = False):
+                 *, reverse: bool = False, fused: bool = False,
+                 time_group=None):
         super().__init__(n_feat, kernel_size, reduction, fused=fused)
         self.reverse = reverse
+        self.time_group = time_group
 
     def forward(self, x, inplace: bool = False):
         """x is never written; ``inplace`` is accepted for CAB's signature
         and changes nothing."""
         y = temporal_channel_shift(x, reverse=self.reverse,
-                                   boundary_patch=True)
+                                   boundary_patch=True,
+                                   group=self.time_group)
         return super().forward(y, inplace=True)
 
 
@@ -395,14 +399,20 @@ class EncoderShiftBlock(nn.Module):
     While autograd records, each (forward, reverse) round pair is a
     ``torch.utils.checkpoint`` (non-reentrant) region, JAX's remat boundary
     (``shiftnet_tpu/models/layers.py:670``); an odd number of rounds runs
-    unrolled, as there."""
+    unrolled, as there.
+
+    ``time_group``: the time ring of a clip split over ranks (sequence
+    parallelism, JAX's ``time_axis``): each round's temporal shift
+    exchanges the edge frame over it (``ops.shift.ring_edge``), and the
+    fused form keeps every kernel (``naf_chw.encoder_shift_block``)."""
 
     def __init__(self, n_feat: int, *, rounds: int = 8, reduction: int = 4,
                  boundary_patch: bool = True, mid_ca: bool = False,
                  last_bias: bool = False, repconv_depthwise: bool = False,
-                 fused: bool = False):
+                 fused: bool = False, time_group=None):
         super().__init__()
         self.rounds = rounds
+        self.time_group = time_group
         self.boundary_patch = boundary_patch
         self.mid_ca = mid_ca
         self.last_bias = last_bias
@@ -422,7 +432,7 @@ class EncoderShiftBlock(nn.Module):
                 return naf_chw.encoder_shift_block(
                     dict(self.named_parameters()), x, rounds=self.rounds,
                     boundary_patch=self.boundary_patch, mid_ca=self.mid_ca,
-                    last_bias=self.last_bias)
+                    last_bias=self.last_bias, group=self.time_group)
             return self._rounds(x, 0, self.rounds)
         if self.rounds % 2:
             return self._rounds(x, 0, self.rounds)
@@ -439,10 +449,11 @@ class EncoderShiftBlock(nn.Module):
                 x = chw_grad.shift_block_round(
                     p, name, x, reverse=r % 2 == 1,
                     boundary_patch=self.boundary_patch, mid_ca=self.mid_ca,
-                    last_bias=self.last_bias)
+                    last_bias=self.last_bias, group=self.time_group)
                 continue
             y, hw = gsts(x, self.number, reverse=r % 2 == 1,
-                         boundary_patch=self.boundary_patch)
+                         boundary_patch=self.boundary_patch,
+                         group=self.time_group)
             cab2, cab1 = self.get_submodule(name)
             x = cab1(cab2(y, hw))
             del y, hw

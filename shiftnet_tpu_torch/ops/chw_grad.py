@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from shiftnet_tpu_torch.ops import chw, naf_chw
+from shiftnet_tpu_torch.ops.shift import ring_edge
 
 
 def _function(name: str, kernel, plain, doc: str):
@@ -173,13 +174,19 @@ def tfr_unet(p: dict[str, torch.Tensor], x: torch.Tensor, *,
 
 def shift_block_round(p: dict[str, torch.Tensor], blk: str, x: torch.Tensor,
                       *, reverse: bool, boundary_patch: bool,
-                      mid_ca: bool = False,
-                      last_bias: bool = False) -> torch.Tensor:
+                      mid_ca: bool = False, last_bias: bool = False,
+                      group=None) -> torch.Tensor:
     """One round of ``naf_chw.encoder_shift_block``: shift_round -> CAB2
-    (``{blk}.0``) -> CAB1 (``{blk}.1``), through the Functions."""
+    (``{blk}.0``) -> CAB1 (``{blk}.1``), through the Functions.  On a time
+    ring (``group``) ``ops.shift.ring_edge`` then rewrites the frame that
+    takes its half-channels from the neighbouring rank (differentiated by
+    autograd through the ring exchange)."""
     number = x.shape[1] // 2 // 8
     kw = dict(mid_ca=mid_ca, last_bias=last_bias)
     y, hw = shift_round(x, number, reverse=reverse,
                         boundary_patch=boundary_patch)
+    if group is not None:
+        ring_edge(x, y, hw, number, reverse=reverse,
+                  boundary_patch=boundary_patch, group=group)
     x = naf_cab(p, f'{blk}.0', y, hw, **kw)
     return naf_cab(p, f'{blk}.1', x, **kw)

@@ -43,7 +43,7 @@ from shiftnet_tpu_torch.ops.chw import (LAUNCHES, SMEM_BYTES, _check, _on_cuda,
                                         _pick_tile, _stream, ca_mlp,
                                         check_inplace, cm_pitch, mma_layout,
                                         mma_pitch, pack_taps, prefix)
-from shiftnet_tpu_torch.ops.shift import gsts
+from shiftnet_tpu_torch.ops.shift import gsts, ring_edge
 
 LN_EPS = 1e-6
 SBUF_PAD = 8      # csrc/naf_gate.cu, naf_rep.cu: output tile plane padding
@@ -463,19 +463,27 @@ def _naf_cab(p, name, y, hw, mid_ca, last_bias, gate, rep, back, panels):
 
 def encoder_shift_block(p: dict[str, torch.Tensor], x: torch.Tensor, *,
                         rounds: int, boundary_patch: bool,
-                        mid_ca: bool = False,
-                        last_bias: bool = False) -> torch.Tensor:
+                        mid_ca: bool = False, last_bias: bool = False,
+                        group=None) -> torch.Tensor:
     """``Encoder_shift_block`` (``layers.EncoderShiftBlock``) on the
     kernels, the counterpart of ``shiftnet_tpu/ops/naf_chw.py:
     encoder_shift_block_chw``: ``rounds`` x [shift_round -> CAB2 -> CAB1],
     forward first, then alternating.  ``p``: the block's own
-    ``named_parameters()``.  x is never written."""
+    ``named_parameters()``.  x is never written.
+
+    ``group`` (sequence parallelism, JAX's ``axis``): shift_round runs
+    on the rank's frames, and ``ops.shift.ring_edge`` rewrites the one
+    frame that takes its half-channels from the neighbouring rank (JAX
+    runs the whole shift as plain XLA there, ``naf_chw.py:1399-1405``)."""
     number = x.shape[1] // 2 // 8
     kw = dict(mid_ca=mid_ca, last_bias=last_bias)
     for r in range(rounds):
         blk = 'encoder_level1' if r == 0 else f'encoder_level1_{r}'
         y, hw = shift_round(x, number, reverse=r % 2 == 1,
                             boundary_patch=boundary_patch)
+        if group is not None:
+            ring_edge(x, y, hw, number, reverse=r % 2 == 1,
+                      boundary_patch=boundary_patch, group=group)
         # Both blocks write in place: CAB2's y is the fresh output of
         # shift_round and CAB1's input is CAB2's output; neither is read
         # again.

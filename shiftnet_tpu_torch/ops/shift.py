@@ -10,7 +10,11 @@ Counterpart of ``shiftnet_tpu/ops/shift.py``; the channel axis is 1 here.
       forward: y[t] = cat(x[t-1][C/2:], x[t][:C/2])  (frame 0 wraps to x[T-1])
       reverse: y[t] = cat(x[t][C/2:], x[t+1][:C/2])  (frame T-1 wraps to x[0])
 
-  ``boundary_patch`` restores the wrapped frame to its input.
+  ``boundary_patch`` restores the wrapped frame to its input.  With a
+  ``group`` (sequence parallelism: the clip's frames split over a time
+  ring of ranks, ``parallel/temporal.py``) the frame that crosses a shard
+  boundary comes from the neighbouring rank, and only the global boundary
+  frame is patched (``shiftnet_tpu/ops/shift.py:158-193``).
 - ``grouped_spatial_shift`` translates 24 channel groups by static
   (dy, dx) offsets in {0, +-4, +-8} with zero fill
   (``gshift_deblur1.py:470-503``).
@@ -70,8 +74,14 @@ def grouped_spatial_shift(hw: torch.Tensor, number: int) -> torch.Tensor:
 
 
 def temporal_channel_shift(x: torch.Tensor, *, reverse: bool = False,
-                           boundary_patch: bool = True) -> torch.Tensor:
-    """Temporal half-channel shift over the frame axis (see module doc)."""
+                           boundary_patch: bool = True,
+                           group=None) -> torch.Tensor:
+    """Temporal half-channel shift over the frame axis (see module doc).
+    ``group``: the time ring over which x's frames are split; None for a
+    whole clip."""
+    if group is not None:
+        return _temporal_channel_shift_sharded(x, reverse, boundary_patch,
+                                               group)
     c = x.shape[1]
     cs = c // 2
     if not reverse:
@@ -86,14 +96,87 @@ def temporal_channel_shift(x: torch.Tensor, *, reverse: bool = False,
     return y
 
 
+def _temporal_channel_shift_sharded(x, reverse, boundary_patch, group):
+    """The shift on this rank's frames of a clip split over ``group``:
+    one edge frame's moving half-channels go to the neighbour over the
+    ring (``parallel.temporal.exchange``, differentiable), and the ring's
+    wrap reproduces ``torch.roll``'s, so the gathered result equals the
+    unsharded shift bit for bit; the boundary patch applies on the first
+    (forward) or last (reverse) rank only."""
+    import torch.distributed as dist
+
+    from shiftnet_tpu_torch.parallel.temporal import exchange
+    c = x.shape[1]
+    cs = c // 2
+    r = dist.get_rank(group)
+    n = dist.get_world_size(group)
+    if not reverse:  # y[t] = [x[t-1][c-cs:], x[t][:c-cs]]
+        h = x[:, c - cs:]
+        recv, = exchange(group, (1,), h[-1:])
+        y = torch.cat([torch.cat([recv, h[:-1]]), x[:, :c - cs]], dim=1)
+        if boundary_patch and r == 0:
+            y = torch.cat([x[:1], y[1:]])
+    else:  # y[t] = [x[t][cs:], x[t+1][:cs]]
+        h = x[:, :cs]
+        recv, = exchange(group, (-1,), h[:1])
+        y = torch.cat([x[:, cs:], torch.cat([h[1:], recv])], dim=1)
+        if boundary_patch and r == n - 1:
+            y = torch.cat([y[:-1], x[-1:]])
+    return y
+
+
 def gsts(x: torch.Tensor, number: int, *, reverse: bool = False,
-         boundary_patch: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+         boundary_patch: bool = True,
+         group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One GSTS round: the temporally shifted y (T, C, H, W) and hw, the
     spatially shifted copy of the moved channels (front 8*number going
     forward, back 8*number in reverse).  The reference concatenates them
-    (``gshift_deblur1.py:504-528``); CAB2 takes them apart."""
+    (``gshift_deblur1.py:504-528``); CAB2 takes them apart.  ``group``:
+    as in ``temporal_channel_shift`` (the round of the rank's frames,
+    then ``ring_edge``)."""
     y = temporal_channel_shift(x, reverse=reverse,
                                boundary_patch=boundary_patch)
     add_c = 8 * number
     hw = y[:, -add_c:] if reverse else y[:, :add_c]
-    return y, grouped_spatial_shift(hw, number)
+    hw = grouped_spatial_shift(hw, number)
+    if group is not None:
+        ring_edge(x, y, hw, number, reverse=reverse,
+                  boundary_patch=boundary_patch, group=group)
+    return y, hw
+
+
+def ring_edge(x: torch.Tensor, y: torch.Tensor, hw: torch.Tensor,
+              number: int, *, reverse: bool, boundary_patch: bool,
+              group) -> None:
+    """Make (y, hw), a GSTS round of this rank's frames x alone (``gsts``
+    or the shift_round kernel), the round of the clip split over the time
+    ring ``group``: the one frame whose moving half-channels come from the
+    neighbouring rank (frame 0 going forward, frame T-1 in reverse) is
+    rewritten in place from the half-channels exchanged over the ring, and
+    its hw from that frame's spatial shift.  The rank that holds the
+    global boundary frame keeps it where ``boundary_patch`` restored it
+    (``shiftnet_tpu/ops/shift.py:158-193``).  Differentiable: the
+    rewritten frame's gradient goes back over the ring."""
+    import torch.distributed as dist
+
+    from shiftnet_tpu_torch.parallel.temporal import exchange
+    c = x.shape[1]
+    cs = c // 2
+    add_c = 8 * number
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if not reverse:  # y[0] = [x_left[T-1][c-cs:], x[0][:c-cs]]
+        recv, = exchange(group, (1,), x[-1:, c - cs:])
+        e = torch.cat([recv, x[:1, :c - cs]], dim=1)
+        frame, moved, edge_rank = slice(0, 1), slice(0, add_c), 0
+    else:  # y[T-1] = [x[T-1][cs:], x_right[0][:cs]]
+        recv, = exchange(group, (-1,), x[:1, :cs])
+        e = torch.cat([x[-1:, cs:], recv], dim=1)
+        frame, moved, edge_rank = slice(-1, None), slice(c - add_c, c), n - 1
+    y[frame] = e
+    if boundary_patch and r == edge_rank:
+        # the global boundary frame keeps its patch; e is written first all
+        # the same, so that the exchange, whose backward is a collective,
+        # is in every rank's graph
+        y[frame] = x[frame]
+    else:
+        hw[frame] = grouped_spatial_shift(e[:, moved], number)

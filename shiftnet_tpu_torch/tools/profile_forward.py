@@ -131,14 +131,26 @@ def profile_config(variant: str, overrides: dict, state,
         print(f'  {ms:10.1f} ms {100 * ms / total:5.1f} %  peak '
               f'{peaks[stage] / 1e9:7.3f} GB  {stage}')
 
+    traced(forward)
+
+
+def traced(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and print the wall time,
+    the device-busy share of it (the union of kernel intervals), the port
+    kernels' share of the kernel time, each port kernel's time and
+    launches (every instantiation and form summed) and the top kernels;
+    returns the wall and busy seconds and the kernel seconds by name."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # device events but the ranges that annotate host code on the device's
+    # timeline (``Optimizer.step#AdamW.step``), which hold no kernel
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA
+               and not getattr(e, 'is_user_annotation', False)
                and not e.name.startswith('Command Buffer Full')]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, float('-inf')
@@ -171,6 +183,10 @@ def profile_config(variant: str, overrides: dict, state,
     for kname, (us, n) in sorted(by_name.items(),
                                  key=lambda kv: -kv[1][0])[:TOP]:
         print(f'{us / 1e3:12.2f} ms {n:6d}x  {kname[:100]}', flush=True)
+    return {'wall_s': wall, 'busy_s': busy_us / 1e6, 'kernel_s': dev_us / 1e6,
+            'port_s': ours_us / 1e6,
+            'top': sorted(((us / 1e6, n, k) for k, (us, n) in by_name.items()),
+                          reverse=True)[:TOP]}
 
 
 def main(argv=None):

@@ -14,11 +14,14 @@ the torch-keyed ``.npz`` exports of either package or a reference ``.pth``
 checkpoint.  Denoise evaluates in float32 unless ``--bf16``.  ``--metric``,
 ``--grids`` and ``--profile`` as in ``test_deblur``; ``--no_tile`` is the
 JAX CLI's deprecated alias of the default (the full window) and does
-nothing.
+nothing.  ``--tp N`` splits each window's frames over N ranks, as in
+``test_deblur`` (not with ``--quadrant`` or ``--grids``, which raise).
 """
 import argparse
+import os
 
 from shiftnet_tpu_torch.eval.runner import Evaluator
+from shiftnet_tpu_torch.parallel.mesh import init_distributed
 from shiftnet_tpu_torch.tools.params_io import load_state
 from shiftnet_tpu_torch.utils.profiling import trace
 
@@ -38,6 +41,20 @@ def add_validation_args(ap: argparse.ArgumentParser):
     ap.add_argument('--crop_size', type=int, default=256)
     ap.add_argument('--trans_num', type=int, default=1,
                     help='number of rot/flip TTA transforms per crop (1-8)')
+    ap.add_argument('--tp', type=int, default=1,
+                    help='split each window over N ranks (sequence-parallel '
+                         'inference; run under torchrun --nproc_per_node N)')
+
+
+def tp_device(tp: int, device: str):
+    """Join the process group of a ``--tp`` run and return the rank's
+    device; raises unless the launcher started exactly ``tp`` ranks
+    (``WORLD_SIZE``)."""
+    world = int(os.environ.get('WORLD_SIZE', 1))
+    if tp != world:
+        raise SystemExit(f'--tp {tp} with WORLD_SIZE {world}: launch with '
+                         f'torchrun --nproc_per_node {tp}')
+    return init_distributed(device) if tp > 1 else device
 
 
 def parse_metric_args(entries):
@@ -75,18 +92,21 @@ def main(argv=None):
     add_validation_args(ap)
     args = ap.parse_args(argv)
 
+    device = tp_device(args.tp, args.device)
     state = load_state(args.variant, args.model_path)
-    ev = Evaluator(args.variant, state, device=args.device,
+    ev = Evaluator(args.variant, state, device=device,
                    result_path=args.result_path,
                    bf16=True if args.bf16 else None,
                    save_images=args.save_image,
-                   metrics=parse_metric_args(args.metric))
+                   metrics=parse_metric_args(args.metric), tp=args.tp)
     with trace(args.profile):
         res = ev.eval_denoise(args.data_path, args.sigma, tile=args.quadrant,
                               seed=args.seed, grids=args.grids,
                               crop_size=args.crop_size,
                               trans_num=args.trans_num)
-    print(res)
+    if ev.primary:
+        print(res)
+    return res
 
 
 if __name__ == '__main__':

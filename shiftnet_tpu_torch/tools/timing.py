@@ -21,6 +21,24 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12      # dense bf16 tensor-core peak, the same
 
 
+def host_state() -> str:
+    """The host's load (``os.getloadavg()`` over ``os.cpu_count()``) and
+    the card's SM clock, its maximum, power draw and temperature
+    (``nvidia-smi``), to print beside a timing: what else the host runs,
+    and what clock the card held."""
+    import os
+    load = ', '.join(f'{v:.2f}' for v in os.getloadavg())
+    try:
+        smi = subprocess.run(
+            ['nvidia-smi', '--query-gpu=clocks.sm,clocks.max.sm,power.draw,'
+             'temperature.gpu', '--format=csv,noheader'],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        smi = 'nvidia-smi unavailable'
+    smi = smi.splitlines()[0] if smi else 'nvidia-smi unavailable'
+    return f'load {load} / {os.cpu_count()} cpus; sm, max sm, W, C: {smi}'
+
+
 def require_cuda(tool: str) -> None:
     if not torch.cuda.is_available():
         raise SystemExit(f'{tool}: needs a CUDA device; the probes measure '

@@ -22,10 +22,13 @@ _CKPT = re.compile(r'^ckpt_(\d+)\.pt$')
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 create: bool = True):
+        """``create``: make the directory (the rank that writes)."""
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
+        if create:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f'ckpt_{step:08d}.pt')

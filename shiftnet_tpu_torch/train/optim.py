@@ -205,14 +205,23 @@ def hem_loss(pred, target, *, hard_thre_p: float = 0.5,
              random_thre_p: float = 0.1,
              generator: torch.Generator | None = None):
     """Hard-example-mining L1 (``hard_example_mining.py:14-47``) on
-    ``(..., C, H, W)``: the per-pixel residual (|x-y| summed over channels)
-    is thresholded at the value ranked ``hard_thre_p*h*w`` (descending,
-    strictly greater), an exactly-``random_thre_p*h*w``-pixel random mask
-    drawn from ``generator`` is OR-ed in (none without a generator), and
-    the loss is the mean of |x-y| * mask over all elements.  Leading dims
-    are the mask batch (frames)."""
+    ``(..., C, H, W)``: the mean of |x-y| * ``hem_mask`` over all
+    elements."""
     err = torch.abs(pred - target)
-    h, w = pred.shape[-2:]
+    return torch.mean(err * hem_mask(err, hard_thre_p=hard_thre_p,
+                                     random_thre_p=random_thre_p,
+                                     generator=generator))
+
+
+def hem_mask(err, *, hard_thre_p: float = 0.5, random_thre_p: float = 0.1,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """HEM's mask of ``err = |x-y|`` (``(..., C, H, W)``): the per-pixel
+    residual (summed over channels) is thresholded at the value ranked
+    ``hard_thre_p*h*w`` (descending, strictly greater), and an
+    exactly-``random_thre_p*h*w``-pixel random mask drawn from
+    ``generator`` is OR-ed in (none without a generator).  Leading dims are
+    the mask batch (frames).  Returns ``(..., 1, H, W)`` in err's type."""
+    h, w = err.shape[-2:]
     res = err.sum(dim=-3)                              # (..., H, W)
     flat = res.reshape(-1, h * w)
     k = int(hard_thre_p * h * w)
@@ -224,8 +233,7 @@ def hem_loss(pred, target, *, hard_thre_p: float = 0.5,
                           device=flat.device)
         cutoff = torch.sort(rand, dim=1).values[:, k2 - 1]
         mask = mask | (rand <= cutoff[:, None])
-    mask = mask.to(err.dtype).reshape(res.shape).unsqueeze(-3)
-    return torch.mean(err * mask)
+    return mask.to(err.dtype).reshape(res.shape).unsqueeze(-3)
 
 
 _LOSS_FNS: dict[str, Callable] = {
@@ -247,17 +255,47 @@ def parse_loss_spec(spec: str) -> list[tuple[float, str]]:
 
 
 def build_loss(spec: str) -> Callable:
-    """A ``Loss2`` spec string as a callable (pred, target, generator)."""
-    terms = parse_loss_spec(spec)
+    """A ``Loss2`` spec string as a callable ``(pred, target, generator=
+    None, *, mask=None, count=None, reduce=None)``.
 
-    def loss_fn(pred, target, generator=None):
-        total = 0.0
-        for w, name in terms:
-            if name == 'HEM':
-                total = total + w * hem_loss(pred, target,
-                                             generator=generator)
+    Each term is a function of one sum S over the elements and of the
+    count that the loss averages over: S of |d| (L1), d^2 (MSE, L2,
+    PSNR) or |d| * ``hem_mask`` (HEM, its random part drawn from
+    ``generator``), d = pred - target; L1, MSE and HEM are S / count,
+    PSNR 0.5 * (10/ln10) * log(S / count + 1e-8).  ``mask`` weights the
+    elements (0 or 1, broadcast over pred), ``count`` defaults to pred's
+    elements.  ``reduce`` (ranks of a mesh) sums a tensor of the terms'
+    sums over the ranks in place: each S is then the global sum, entering
+    the loss as the rank's own sum plus a constant, so the loss is the
+    global one and its backward gives each rank f'(S) dS_r, which summed
+    over the ranks is the global loss's gradient
+    (``shiftnet_tpu/train/step.py:162-214``)."""
+    terms = parse_loss_spec(spec)
+    scale = 0.5 * 10.0 / math.log(10.0)
+
+    def loss_fn(pred, target, generator=None, *, mask=None, count=None,
+                reduce=None):
+        d = pred - target
+        sums = []
+        for _, name in terms:
+            if name == 'L1':
+                e = torch.abs(d)
+            elif name == 'HEM':
+                e = torch.abs(d)
+                e = e * hem_mask(e, generator=generator)
             else:
-                total = total + w * _LOSS_FNS[name](pred, target)
-        return total
+                e = torch.square(d)
+            sums.append(torch.sum(e if mask is None else e * mask))
+        if reduce is not None:
+            total = torch.stack([v.detach() for v in sums])
+            reduce(total)
+            sums = [t + (v - v.detach()) for t, v in zip(total, sums)]
+        n = pred.numel() if count is None else count
+        loss = 0.0
+        for (w, name), v in zip(terms, sums):
+            mean = v / n
+            loss = loss + w * (scale * torch.log(mean + 1e-8)
+                               if name == 'PSNR' else mean)
+        return loss
 
     return loss_fn

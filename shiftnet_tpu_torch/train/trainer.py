@@ -1,4 +1,4 @@
-"""The training orchestrator of the port, on one GPU.
+"""The training orchestrator of the port.
 
 Counterpart of ``shiftnet_tpu/train/trainer.py:47-331`` (the reference's
 ``basicsr/train1.py`` / ``train2.py``): model + optimizer + step + loader +
@@ -9,13 +9,20 @@ from the same YAML configs.
   kernels run the forward and the plain twins' autograd the backward
   (``ops/chw_grad``).  Otherwise (the default, as in JAX) the plain model
   under autograd.
-- ``time_parallel > 1`` (sequence parallelism) is not ported yet: it
-  raises.
+- Parallelism (``trainer.py:66-140, :163-167``): under a launcher
+  (torchrun, ``parallel/launch.py``) the ranks form a ``data x time``
+  mesh, ``time = time_parallel`` and ``data = world size / time``.  The
+  global batch is ``batch_size_per_device x data``; the sampler shards the
+  clips by data rank, and the ranks of one time ring load the same clips
+  and each trains on its frames (``train/step.py``).  Only the primary
+  rank logs, dumps visuals, validates and writes checkpoints; every rank
+  reads them on resume.
 - The step's random draws (denoise noise, HEM) come from a generator keyed
-  by (``manual_seed``, step), and auto-resume fast-forwards the loader to
-  the saved step, so a resumed run reproduces the uninterrupted one.
-- ``device`` (default ``cuda``) is where the model trains; ``cpu`` runs it
-  on the plain versions.
+  by (``manual_seed``, step), HEM's on a mesh also by the rank's data and
+  time index; auto-resume fast-forwards the loader to the saved step, so a
+  resumed run reproduces the uninterrupted one.
+- ``device`` (default ``cuda``, a launched rank's own card) is where the
+  model trains; ``cpu`` runs it on the plain versions.
 """
 from __future__ import annotations
 
@@ -24,16 +31,19 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from shiftnet_tpu_torch.data.loader import (DeviceStager, PrefetchLoader,
                                             staged_batches)
 from shiftnet_tpu_torch.data.video_dataset import (ShardedEpochSampler,
                                                    VideoFolderDataset)
 from shiftnet_tpu_torch.models import CONFIGS, build_model, init_params
+from shiftnet_tpu_torch.parallel import mesh as pmesh
 from shiftnet_tpu_torch.train.checkpoint import (CheckpointManager,
                                                  save_params_npz)
 from shiftnet_tpu_torch.train.optim import OptimConfig, build_optimizer
-from shiftnet_tpu_torch.train.step import TaskConfig, train_step
+from shiftnet_tpu_torch.train.step import (TaskConfig, shard_generator,
+                                           train_step)
 from shiftnet_tpu_torch.utils.config import make_exp_dirs
 from shiftnet_tpu_torch.utils.logging import TrainLogger, get_logger
 
@@ -41,23 +51,39 @@ from shiftnet_tpu_torch.utils.logging import TrainLogger, get_logger
 class Trainer:
     def __init__(self, opt: dict[str, Any]):
         self.opt = opt
-        if int(opt.get('time_parallel', 1)) > 1:
-            raise NotImplementedError(
-                'time_parallel > 1 (sequence-parallel training) is not '
-                'ported yet: ROADMAP Queue 1 item 6 (parallelism)')
-        make_exp_dirs(opt)
+        self.time_parallel = int(opt.get('time_parallel', 1))
+        world = pmesh.world_size()
+        if world % self.time_parallel:
+            raise ValueError(
+                f'time_parallel {self.time_parallel} needs a multiple of '
+                f'{self.time_parallel} ranks; this run has {world} (launch '
+                f'it with torchrun --nproc_per_node N)')
+        if int(opt['n_sequence']) % self.time_parallel:
+            raise ValueError(  # shiftnet_tpu/train/trainer.py:96-99
+                f'n_sequence {opt["n_sequence"]} must divide by '
+                f'time_parallel {self.time_parallel}')
+        self.mesh = pmesh.make_mesh(time=self.time_parallel)
+        self.primary = pmesh.is_primary()
+        if self.primary:
+            make_exp_dirs(opt)
         self.logger = get_logger(
             f"shiftnet_torch:{os.path.abspath(opt['path']['log'])}",
-            os.path.join(opt['path']['log'], 'train.log'))
+            os.path.join(opt['path']['log'], 'train.log'),
+            is_primary=self.primary)
         self.device = torch.device(opt.get('device', 'cuda'))
 
         variant = opt['model']
         bf16 = bool(opt.get('bf16', True))
-        mcfg = CONFIGS[variant]
         # Training predicts all-but-(fb, ff) frames; the fused model trains
         # only with bf16 (shiftnet_tpu/train/trainer.py:85-86).
         fused = bool(opt.get('fused', False)) and bf16
         mov = dict(opt.get('model_overrides') or {})
+        mcfg = CONFIGS[variant].replace(**mov)
+        if self.time_parallel > 1:
+            # every rank predicts all of its frames; the loss masks the
+            # global edge frames (train/step.py)
+            mov.update(past_frames=0, future_frames=0,
+                       time_group=self.mesh.time_group)
         self.model = build_model(variant, fused_chw=fused, **mov)
         self.seed = int(opt.get('manual_seed', 0))
         init_params(self.model, self.seed)
@@ -65,8 +91,7 @@ class Trainer:
         self.task = TaskConfig(
             kind='denoise' if mcfg.noise_map else 'deblur',
             loss_spec=opt.get('loss_type', '1*L1'),
-            center_slice=(self.model.cfg.past_frames,
-                          self.model.cfg.future_frames),
+            center_slice=(mcfg.past_frames, mcfg.future_frames),
             dtype=torch.bfloat16 if bf16 else torch.float32)
 
         train_opt = opt['train']
@@ -86,9 +111,12 @@ class Trainer:
             lr_group_scales=train_opt.get('lr_group_scales', {}) or {})
         self.optimizer = build_optimizer(self.model, self.optim_cfg)
         self.batch_size = int(opt.get('batch_size_per_device', 1))
+        m = self.mesh
         self.logger.info(
             f'{variant} on {self.device}: {"fused" if fused else "plain"}, '
-            f'{self.task.dtype}, batch {self.batch_size}')
+            f'{self.task.dtype}, mesh data {m.data} x time {m.time}, '
+            f'global batch {self.batch_size * m.data} '
+            f'({self.batch_size} a data rank)')
 
         ds_opt = opt['datasets']['train']
         common = dict(n_seq=int(opt['n_sequence']),
@@ -110,7 +138,7 @@ class Trainer:
         sampler = ShardedEpochSampler(
             len(self.dataset),
             ratio=int(ds_opt.get('dataset_enlarge_ratio', 1)),
-            seed=self.seed)
+            num_shards=m.data, shard=m.data_rank, seed=self.seed)
         self.loader = PrefetchLoader(
             self.dataset, sampler, batch_size=self.batch_size,
             num_threads=int(ds_opt.get('num_worker_per_gpu', 2)),
@@ -118,7 +146,9 @@ class Trainer:
         self.steps_per_epoch = max(len(self.dataset) // self.batch_size, 1)
 
         self.ckpt = CheckpointManager(opt['path']['training_states'],
-                                      max_to_keep=3)
+                                      max_to_keep=3, create=self.primary)
+        if pmesh.initialized():
+            dist.barrier()  # the primary made the directories
         self.step = 0
         state = self.ckpt.restore()
         if state is not None:
@@ -134,7 +164,7 @@ class Trainer:
 
     def generator(self, step: int) -> torch.Generator:
         """The step's random draws: keyed by (seed, step), as JAX folds the
-        step into its key (``trainer.py:239``)."""
+        step into its key (``trainer.py:239``); the same on every rank."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed((self.seed + 1) * 2 ** 32 + step)
         return gen
@@ -159,19 +189,22 @@ class Trainer:
         for host, staged in staged_batches(self.loader, stager.put):
             if it >= self.total_iters:
                 break
-            self.metrics = train_step(self.model, self.optimizer, self.task,
-                                      stager.ready(staged),
-                                      self.generator(it))
+            self.metrics = train_step(
+                self.model, self.optimizer, self.task, stager.ready(staged),
+                self.generator(it),
+                mesh=self.mesh if pmesh.initialized() else None,
+                loss_generator=shard_generator(self.seed, it, self.mesh,
+                                               self.device))
             it += 1
             self.step = it
-            if it % print_freq == 0:
+            if it % print_freq == 0 and self.primary:
                 tlog(it, it // self.steps_per_epoch, self.current_lr(it),
                      {k: float(v) for k, v in self.metrics.items()})
-            if visual_freq and it % visual_freq == 0:
+            if visual_freq and it % visual_freq == 0 and self.primary:
                 self.dump_visuals(it, host)
             if it % save_freq == 0:
                 self.save(it)
-            if val_freq and it % val_freq == 0:
+            if val_freq and it % val_freq == 0 and self.primary:
                 self.validate(it, val_cfg)
         self.loader.stop()
         self.save(it)
@@ -207,6 +240,20 @@ class Trainer:
             if isinstance(v, float)))
         return res
 
+    def whole_clip_model(self):
+        """The model of a whole clip: ``self.model``, or on a time ring a
+        copy without the ring that predicts all but the center slice's
+        frames (``trainer.py``'s ``self.model`` beside ``_ts_model``)."""
+        if self.model.cfg.time_group is None:
+            return self.model
+        fb, ff = self.task.center_slice
+        twin = build_model(self.opt['model'],
+                           fused_chw=self.model.cfg.fused_chw,
+                           **dict(self.opt.get('model_overrides') or {},
+                                  past_frames=fb, future_frames=ff))
+        twin.load_state_dict(self.model.state_dict())
+        return twin.to(self.device)
+
     def dump_visuals(self, it: int, batch: dict[str, np.ndarray]):
         """An (input, gt, output) PNG triplet of the first clip's center
         frame (reference ``train1.py:261-274``)."""
@@ -221,7 +268,8 @@ class Trainer:
             nm = torch.full((x.shape[0], 1, *x.shape[2:]), 25.0 / 255.0,
                             device=self.device, dtype=x.dtype)
         with torch.inference_mode():
-            out = self.model(x, nm).float().permute(0, 2, 3, 1).cpu().numpy()
+            out = self.whole_clip_model()(x, nm).float().permute(
+                0, 2, 3, 1).cpu().numpy()
         mid = out.shape[0] // 2
         d = self.opt['path']['visualization']
         os.makedirs(d, exist_ok=True)
@@ -231,6 +279,9 @@ class Trainer:
                 os.path.join(d, f'{it:08d}_{name}.png'))
 
     def save(self, it: int):
+        """The checkpoint and the ``.npz`` export, on the primary rank."""
+        if not self.primary:
+            return
         self.ckpt.save(it, {'step': it, 'model': self.model.state_dict(),
                             'optimizer': self.optimizer.state_dict()})
         npz = os.path.join(self.opt['path']['models'], f'net_g_{it}.npz')

@@ -183,7 +183,10 @@ def test_port_imports_no_jax():
         "assert 'shiftnet_tpu_torch.ops.probes' in sys.modules\n"
         "assert 'shiftnet_tpu_torch.tools.probe_copy_bw' in sys.modules\n"
         "for n in ('train.trainer', 'train.optim', 'ops.chw_grad',\n"
-        "          'data.packed', 'data.loader', 'tools.train'):\n"
+        "          'data.packed', 'data.loader', 'tools.train',\n"
+        "          'parallel.mesh', 'parallel.temporal', 'parallel.launch',\n"
+        "          'parallel.workers', 'tools.bench_train',\n"
+        "          'tools.profile_train'):\n"
         "    assert 'shiftnet_tpu_torch.' + n in sys.modules, n\n"
         "from shiftnet_tpu_torch.data import packed\n"
         "lib = packed._load_lib()\n"
@@ -210,6 +213,10 @@ def test_port_sources_import_nothing_of_the_jax_package():
     sources = sorted((REPO / 'shiftnet_tpu_torch').rglob('*.py'))
     sources.append(REPO / 'chip_smoke.py')
     assert len(sources) >= 20
+    assert {f'shiftnet_tpu_torch/{m}.py' for m in (
+        'parallel/mesh', 'parallel/temporal', 'parallel/launch',
+        'parallel/workers', 'tools/bench_train', 'tools/profile_train')} <= {
+        str(p.relative_to(REPO)) for p in sources}
     found = [f'{path.relative_to(REPO)}: {m.group(0).strip()}'
              for path in sources
              for m in IMPORT_OF_JAX_PACKAGE.finditer(path.read_text())]

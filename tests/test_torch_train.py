@@ -598,7 +598,9 @@ def config_copy(name, tmp_path, **changes):
 def test_train_cli_on_gopro_config(synth_ds, tmp_path):
     """``tools/train.py -opt`` on configs/gopro_deblur.yml with the data
     path, the widths and the run's length changed (bf16 as configured,
-    plain on the CPU); then the tp8 config, which must raise."""
+    plain on the CPU); then the tp8 config, which must raise in one
+    process: its time ring needs 8 ranks (tests/test_torch_parallel.py
+    runs a time ring)."""
     opt = yaml.safe_load((REPO / 'configs' / 'gopro_deblur.yml').read_text())
     opt['train']['total_iter'] = 2
     path = config_copy(
@@ -616,5 +618,6 @@ def test_train_cli_on_gopro_config(synth_ds, tmp_path):
             'net_g_2.npz').exists()
     tp8 = config_copy('gopro_deblur_tp8.yml', tmp_path,
                       experiments_root=str(tmp_path / 'exp'))
-    with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
+    with pytest.raises(ValueError, match='time_parallel 8 needs a multiple '
+                       'of 8 ranks; this run has 1'):
         train_cli.main(['-opt', tp8, '--device', 'cpu'])
