@@ -1,0 +1,7 @@
+"""kernels: the bound time of naf_gate's calls over their device time,
+percent."""
+from benchmark.readers import roofline_share
+
+
+def read(ctx):
+    return roofline_share(ctx, 'naf_gate')
